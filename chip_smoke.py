@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
+NVIDIA GPU: the SGPN eval (serving) path at the paper's full widths.
+
+    python3 chip_smoke.py [--out DIR]
+
+Every run drives all five phases, each printing JSON lines; any failure
+exits non-zero, and nothing runs on the CPU except the one CPU reference
+pass of the slice phase.
+
+1. device  — the card's name and count, and nvidia-smi's name/power limit.
+2. build   — nvcc builds every kernel source; the ptxas register, shared
+             memory and spill summary per kernel.
+3. check   — every kernel against its plain PyTorch version on the card, on
+             the inputs the main path hands it (recorded from an S=8 eval
+             forward, cut to 64 clouds): FPS indices and counts exactly, the
+             fused SA stage within 1e-4 in float32 and 2e-2 in bfloat16.
+4. slice   — ``predict_relations`` on S=8 synthetic pair-shared scenes in
+             bfloat16 (scan_relations JSON written to --out); every kernel's
+             launch counter must rise in that pass. Then float32 at S=1 on
+             the card and on the CPU with the same weights: log-probs within
+             1e-3.
+5. timing  — CUDA-event times of each kernel on the inputs of an S=64
+             bfloat16 batch (the bench.py default) beside its plain version
+             and its bound; end-to-end batch time, scenes/s and peak memory.
+
+Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
+``{"ok": true, "device": {...}}``. Weights are random, from a seed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet; dense): HBM bytes/s, FP32 (non-tensor)
+# and BF16 tensor-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+
+# TPU kernel rows of the serving path (PERF.md table rows 1-4:
+# furthest_point_sample_with_counts, furthest_point_sample_pallas,
+# ball_query_group_mlp_pallas_v4, ball_query_group_mlp_pallas) and the
+# counter that counts the port kernel serving each
+ROWS = (
+    ("fps_with_counts", "fps.fps_counts", "or4d_tpu_torch/ops/csrc/fps.cu",
+     "or4d_tpu/ops/pallas_fps.py:156"),
+    ("fps", "fps.fps", "or4d_tpu_torch/ops/csrc/fps.cu",
+     "or4d_tpu/ops/pallas_fps.py:200"),
+    ("sa_group_mlp_raw", "sa_group_mlp.raw", "or4d_tpu_torch/ops/csrc/sa_group_mlp.cu",
+     "or4d_tpu/ops/pallas_ball_query.py:1928"),
+    ("sa_group_mlp_plane", "sa_group_mlp.plane", "or4d_tpu_torch/ops/csrc/sa_group_mlp.cu",
+     "or4d_tpu/ops/pallas_ball_query.py:1064"),
+)
+SA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+class Recorder:
+    """Wraps the kernel entry points the encoder calls and keeps each call's
+    arguments (tensors on the card) while ``on``."""
+
+    NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp")
+
+    def __init__(self):
+        from or4d_tpu_torch.models import pointnet2
+
+        self.orig = {n: getattr(pointnet2, n) for n in self.NAMES}
+        self.calls: list[tuple[str, tuple, dict]] = []
+        self.on = False
+        for n in self.NAMES:
+            setattr(pointnet2, n, self._wrap(n))
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def wrapped(*args, **kw):
+            if self.on:
+                self.calls.append((name, args, kw))
+            return fn(*args, **kw)
+
+        return wrapped
+
+    def record(self, run):
+        self.calls, self.on = [], True
+        try:
+            run()
+        finally:
+            self.on = False
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def row_of(name: str, kw: dict) -> str:
+    if name == "furthest_point_sample_with_counts":
+        return "fps_with_counts"
+    if name == "furthest_point_sample":
+        return "fps"
+    return "sa_group_mlp_raw" if kw.get("raw") is not None else "sa_group_mlp_plane"
+
+
+def cut(args, kw, rows: int, dtype=None):
+    """The call's tensors cut to the first ``rows`` clouds; floating kernel
+    operands (not geometry or the folded affines) cast to ``dtype``."""
+    def c(key, v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        if v.dim() >= 2 and key not in ("W0", "W1"):
+            v = v[:rows]
+        if dtype is not None and key in ("raw", "W0", "A", "Bq", "W1"):
+            v = v.to(dtype)
+        return v.contiguous()
+
+    names = ("xyz", "new_xyz", "radius", "nsample", "Bq", "a0", "b0", "W1", "a1", "b1")
+    return [c(names[i] if i < len(names) else "", a) for i, a in enumerate(args)], {k: c(k, v) for k, v in kw.items()}
+
+
+def run_call(name, args, kw, plain: bool):
+    from or4d_tpu_torch.ops import fps, sa_group_mlp
+
+    if name.startswith("furthest"):
+        xyz, npoint = args[0], args[1]
+        radii = tuple(args[2]) if len(args) > 2 else ()
+        if plain:
+            return fps.furthest_point_sample_plain(xyz, npoint, radii)
+        if radii:
+            return fps.furthest_point_sample_with_counts(xyz, npoint, radii)
+        return fps.furthest_point_sample(xyz, npoint)
+    if plain:
+        return sa_group_mlp.sa_group_mlp_plain(*args, **kw)
+    return sa_group_mlp.sa_group_mlp(*args, **kw)
+
+
+def max_abs_diff(a, b) -> float:
+    if isinstance(a, tuple):
+        a = (a[0], *a[1]) if isinstance(a[1], tuple) else a
+        b = (b[0], *b[1]) if isinstance(b[1], tuple) else b
+        return max(max_abs_diff(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(name, args, kw) -> tuple[float, str, dict]:
+    """(least ms, "bytes"/"operations", counts) for one call on these inputs:
+    every input read once and every output written once over the HBM rate,
+    against the operations this data needs over the peak for their type."""
+    from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+    from or4d_tpu_torch.ops.fps import CHUNK
+
+    if name.startswith("furthest"):
+        xyz, npoint = args[0], args[1]
+        nr = len(args[2]) if len(args) > 2 else 0
+        B, N, _ = xyz.shape
+        nch = -(-N // CHUNK)
+        nbytes = B * N * 12 + B * npoint * 4 + nr * B * npoint * nch * 4
+        # per point and step: 3 sub, 3 mul, 2 add, min, argmax compare; + a compare per radius
+        steps = npoint - 1 + (1 if nr else 0)
+        f32_ops = B * steps * N * (10 + nr)
+        t_ops = f32_ops / PEAK_F32
+        info = {"bytes": nbytes, "f32_ops": f32_ops}
+    else:
+        xyz, new_xyz, radius, ns, Bq, a0, b0, W1 = args[:8]
+        raw, W0, A, need = kw.get("raw"), kw.get("W0"), kw.get("A"), kw.get("need")
+        halves = 2 if kw.get("paired") else 1
+        B, N, _ = xyz.shape
+        M = new_xyz.shape[1]
+        C1, C2 = W1.shape
+        es = W1.element_size()
+        main = raw if raw is not None else A
+        nbytes = (xyz.numel() * 4 + new_xyz.numel() * 4 + main.numel() * es + Bq.numel() * es
+                  + W1.numel() * es + (W0.numel() * es if W0 is not None else 0) + 4 * (C1 + C2) * 4
+                  + (need.numel() * 4 if need is not None else 0) + B * M * C2 * halves * es)
+        real, scanned = 0, 0
+        step = max(1, (1 << 26) // (M * N))
+        for s in range(0, B, step):
+            idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
+            thr = total.clamp(max=ns)
+            real += int(thr.clamp(min=1).sum())
+            # a search ends at the ns-th hit; with counts it ends at the last
+            # hit it needs, without them a query short of ns hits scans all N
+            last = torch.gather(idx, 2, (thr - 1).clamp(min=0)[..., None])[..., 0] + 1
+            full = thr < ns if need is None else torch.zeros_like(thr, dtype=torch.bool)
+            scanned += int(torch.where(full | (thr == 0), torch.full_like(last, N), last).sum())
+        mm = real * halves * 2 * ((W0.shape[0] * C1 if W0 is not None else 0) + C1 * C2)
+        f32_ops = scanned * 9 + real * halves * (4 * C1 + 3 * C2)
+        # bf16 products run on the tensor cores, concurrently with the FP32
+        # pipes, so the slower of the two bounds; f32 products share the
+        # FP32 pipes with the rest and add to it
+        if W1.dtype == torch.bfloat16:
+            t_ops = max(mm / PEAK_BF16, f32_ops / PEAK_F32)
+        else:
+            t_ops = (mm + f32_ops) / PEAK_F32
+        info = {"bytes": nbytes, "mm_flops": mm, "f32_ops": f32_ops, "real_slots": real, "scanned": scanned}
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
+
+
+def build_batches(S: int, seed: int):
+    from or4d_tpu_torch.config import DatasetConfig
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+
+    # bench.py's scenes: 12 objects x 4000 points, 132 edges x 8000 points
+    return make_scene_samples(S, seed=seed, n_objects=9, ds=DatasetConfig(), points_per_obj=2000,
+                              pair_shared=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
+    ap.add_argument("--scenes", type=int, default=64, help="timing batch (bench.py default 64)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
+        return 1
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.infer import predict_relations
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    card = {"kind": kind, "count": count, "nvidia_smi": smi}
+    emit({"phase": "device", **card, "torch": torch.__version__, "cuda": torch.version.cuda})
+    results = {"device": card}
+
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    ptxas = {n: [l.replace("ptxas info    : ", "").strip() for l in _build.build_log.get(n, "").splitlines()
+                 if "Used" in l or "spill" in l or "Compiling entry" in l]
+             for n in paths}
+    results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
+                        "ptxas": ptxas}
+    emit({"phase": "build", **results["build"]})
+
+    rec = Recorder()
+    t0 = time.perf_counter()
+    samples = build_batches(max(args.scenes, 8), args.seed)
+    emit({"phase": "data", "scenes": len(samples), "host_seconds": time.perf_counter() - t0})
+    model_bf16 = SGPN(compute_dtype=torch.bfloat16, device="cuda", seed=args.seed)
+
+    def prepared(batch, bucket=128):
+        pack = SlotPack.build(batch, bucket=bucket, paired=True)
+        return batch.to("cuda"), pack.to("cuda")
+
+    errs: dict[str, float] = {}
+    b8, p8 = prepared(SceneBatch.stack(samples[:8]))
+    calls = rec.record(lambda: model_bf16(b8, p8))
+    torch.cuda.synchronize()
+    checks = []
+    for name, cargs, ckw in calls:
+        dtypes = [None] if name.startswith("furthest") else [torch.bfloat16, torch.float32]
+        for dt in dtypes:
+            a, k = cut(cargs, ckw, 64, dt)
+            got = run_call(name, a, k, plain=False)
+            torch.cuda.synchronize()
+            want = run_call(name, a, k, plain=True)
+            d = max_abs_diff(got, want)
+            row = row_of(name, ckw)
+            shape = tuple(a[0].shape) if name.startswith("furthest") else (
+                tuple(a[0].shape), tuple(a[1].shape[1:2]), a[3], tuple(a[7].shape), bool(k.get("paired")))
+            if dt is None:
+                ok = d == 0.0
+            else:
+                ok = torch.allclose(got.float(), want.float(), rtol=SA_TOL[dt], atol=SA_TOL[dt])
+            vals = (got[0] if isinstance(got, tuple) else got).float()
+            checks.append({"row": row, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": bool(ok),
+                           "max_abs_value": float(vals.abs().max()),
+                           "nonzero_frac": float((vals != 0).float().mean())})
+            emit({"phase": "check", **checks[-1]})
+            errs[row] = max(errs.get(row, 0.0), d)
+            if not ok:
+                fail(f"{row} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+    results["check"] = checks
+    del calls, b8, p8, a, k, got, want, vals  # free the recorded inputs before the memory is measured
+
+    b8 = SceneBatch.stack(samples[:8])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rels = predict_relations(model_bf16, [b8])
+    torch.cuda.synchronize()
+    main_launches = launch_counts()
+    infer_s = time.perf_counter() - t0
+    (out_dir / "scan_relations_s8_bf16.json").write_text(json.dumps(rels))
+    missing = [c for _r, c, _s, _p in ROWS if main_launches.get(c, 0) == 0]
+    if missing:
+        fail(f"kernels not launched on the main path: {missing} ({main_launches})")
+    n_rel = sum(len(v) for v in rels.values())
+    if len(rels) != 8 or not all(isinstance(t, tuple) and len(t) == 3 for v in rels.values() for t in v):
+        fail("scan_relations malformed")
+    # float32 at S=1: card (kernels) vs CPU (plain versions), same weights
+    b1 = SceneBatch.stack(samples[:1])
+    pack1 = SlotPack.build(b1, bucket=8, paired=True)
+    m_gpu = SGPN(device="cuda", seed=args.seed + 1)
+    m_cpu = SGPN(device="cpu", seed=args.seed + 1)
+    out_gpu = m_gpu(b1.to("cuda"), pack1.to("cuda"))
+    t0 = time.perf_counter()
+    out_cpu = m_cpu(b1.to("cpu"), pack1.to("cpu"))
+    cpu_s = time.perf_counter() - t0
+    em, om = torch.from_numpy(b1.edge_mask), torch.from_numpy(b1.obj_mask)
+    d_rel = float((out_gpu.rel_logprobs.cpu()[em] - out_cpu.rel_logprobs[em]).abs().max())
+    d_obj = float((out_gpu.obj_logprobs.cpu()[om] - out_cpu.obj_logprobs[om]).abs().max())
+    finite = bool(torch.isfinite(out_gpu.rel_logprobs).all() and torch.isfinite(out_gpu.obj_logprobs).all())
+    results["slice"] = {"scenes": 8, "relations": n_rel, "infer_seconds": infer_s, "launches": main_launches,
+                        "f32_s1_rel_max_abs_diff": d_rel, "f32_s1_obj_max_abs_diff": d_obj,
+                        "cpu_reference_seconds": cpu_s, "finite": finite}
+    emit({"phase": "slice", **results["slice"]})
+    if not finite or d_rel > 1e-3 or d_obj > 1e-3:
+        fail(f"S=1 float32 card vs CPU log-probs differ: rel {d_rel}, obj {d_obj}")
+
+    S = args.scenes
+    bS, pS = prepared(SceneBatch.stack(samples[:S]))
+    model_bf16(bS, pS)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model_bf16(bS, pS)
+    torch.cuda.synchronize()
+    launches_S = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = model_bf16(bS, pS)
+    torch.cuda.synchronize()
+    batch_ms = 1e3 * (time.perf_counter() - t0) / reps
+    e2e = {"card": smi, "scenes": S, "dtype": "bfloat16", "batch_ms": batch_ms, "scenes_per_s": S / (batch_ms / 1e3),
+           "peak_mem_bytes": peak, "launches_per_batch": launches_S,
+           "finite": bool(torch.isfinite(out.rel_logprobs).all())}
+    emit({"phase": "timing_e2e", **e2e})
+    if not e2e["finite"]:
+        fail(f"S={S} bfloat16 log-probs are not finite")
+    calls = rec.record(lambda: model_bf16(bS, pS))  # the kernels' inputs in this batch
+    torch.cuda.synchronize()
+    per_call = []
+    kern_ms, plain_ms, bound_ms = {}, {}, {}
+    bound_t = {r[0]: [0.0, 0.0] for r in ROWS}  # bytes time, operations time
+    for name, cargs, ckw in calls:
+        row = row_of(name, ckw)
+        k_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=False), 5)
+        p_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=True), 1)
+        b_ms, b_by, info = bound(name, cargs, ckw)
+        kern_ms[row] = kern_ms.get(row, 0.0) + k_ms
+        plain_ms[row] = plain_ms.get(row, 0.0) + p_ms
+        bound_ms[row] = bound_ms.get(row, 0.0) + b_ms
+        bound_t[row][0 if b_by == "bytes" else 1] += b_ms
+        per_call.append({"row": row, "card": smi, "shape": str(tuple(cargs[0].shape)), "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, **info})
+        emit({"phase": "timing_kernel", **per_call[-1]})
+    results["timing"] = {"e2e": e2e, "per_call": per_call}
+    unmeasured = [r[0] for r in ROWS if r[0] not in errs or r[0] not in kern_ms]
+    if unmeasured:
+        fail(f"kernels with no check or no timing in this run: {unmeasured}")
+
+    results["seconds"] = time.perf_counter() - t_start
+    (out_dir / "results.json").write_text(json.dumps(results, indent=1))
+    kernels = []
+    for row, counter, src, replaces in ROWS:
+        kernels.append({
+            "name": row, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_launches[counter], "max_abs_err": errs[row],
+            "ms": kern_ms[row], "plain_ms": plain_ms[row], "bound_ms": bound_ms[row],
+            "bound_by": "bytes" if bound_t[row][0] >= bound_t[row][1] else "operations",
+            "library_ms": None,
+        })
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Shared building blocks: Dense, masked batch norm, MLP stacks (port of
+``or4d_tpu/models/layers.py``, eval semantics).
+
+Norms take a validity mask and compute masked moments, so padded slots never
+enter the statistics. Eval only: a BN that tracks running statistics
+normalizes with them; TripletGCN's BN (``track_running_stats=False``) always
+uses the masked batch statistics, in eval too.
+
+Parameter names follow the JAX package's tree (``dense_i``, ``bn_i``) so the
+converter (:mod:`or4d_tpu_torch.convert`) maps one onto the other; a Dense
+weight is stored (out, in), the transpose of a flax kernel.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import math
+
+import torch
+from torch import nn
+
+
+def _param(shape, device, std: float = 0.0, generator: torch.Generator | None = None) -> nn.Parameter:
+    """A float32 parameter made on the CPU from ``generator`` (normal with
+    ``std``; zeros when std == 0) and moved to ``device``."""
+    t = torch.zeros(shape, dtype=torch.float32)
+    if std:
+        t.normal_(0.0, std, generator=generator)
+    return nn.Parameter(t.to(device))
+
+
+class Dense(nn.Module):
+    """``y = x @ W^T (+ b)`` computed in ``dtype``; ``dtype=None`` promotes
+    the input and parameter dtypes (flax Dense's default)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None,
+                 device=None, generator=None, init: str = "lecun"):
+        super().__init__()
+        fan = in_features if init == "lecun" else (in_features + out_features) / 2.0
+        self.weight = _param((out_features, in_features), device, 1.0 / math.sqrt(fan), generator)
+        self.bias = _param((out_features,), device) if bias else None
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        b = None if self.bias is None else self.bias.to(dt)
+        return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over all non-channel axes with row validity masking."""
+
+    def __init__(self, features: int, eps: float = 1e-5, track_running_stats: bool = True, device=None):
+        super().__init__()
+        self.eps = eps
+        self.track_running_stats = track_running_stats
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        if track_running_stats:
+            self.register_buffer("running_mean", torch.zeros(features, device=device))
+            self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.track_running_stats:
+            mean, var = self.running_mean, self.running_var
+        else:  # masked biased moments over every non-channel axis
+            xf = x.float().reshape(-1, x.shape[-1])
+            m = torch.ones(xf.shape[0], 1, device=x.device) if mask is None else (
+                torch.broadcast_to(mask.float(), x.shape[:-1]).reshape(-1, 1))
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / count
+            var = (((xf - mean) ** 2) * m).sum(0) / count
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class SharedMLP(nn.Module):
+    """The pointnet2 per-point MLP: Dense (no bias) -> BN -> ReLU per layer
+    (reference build_shared_mlp, pointnet2_modules.py:9-19)."""
+
+    def __init__(self, in_features: int, channels: Sequence[int], dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.depth = len(channels)
+        widths = [in_features, *channels]
+        for i, ch in enumerate(channels):
+            self.add_module(f"dense_{i}", Dense(widths[i], ch, bias=False, dtype=dtype, device=device, generator=generator))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(ch, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = torch.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x)))
+        return x
+
+
+class MLP(nn.Module):
+    """The TripletGCN ``build_mlp`` (network_TripletGCN.py:11-27): Dense
+    (+bias) -> BN (batch statistics, masked) -> ReLU, with BN and ReLU
+    skipped on the final layer unless ``on_last``."""
+
+    def __init__(self, in_features: int, dims: Sequence[int], on_last: bool = False, device=None, generator=None):
+        super().__init__()
+        self.dims = tuple(dims)
+        self.on_last = on_last
+        widths = [in_features, *dims]
+        for i, ch in enumerate(dims):
+            self.add_module(f"dense_{i}", Dense(widths[i], ch, device=device, generator=generator))
+            if i < len(dims) - 1 or on_last:
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, track_running_stats=False, device=device))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        n = len(self.dims)
+        for i in range(n):
+            x = getattr(self, f"dense_{i}")(x)
+            if i < n - 1 or self.on_last:
+                x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
+        return x

@@ -1,0 +1,199 @@
+"""PointNet++ MSG feature encoder, eval forward (port of
+``or4d_tpu/models/pointnet2.py``).
+
+Architecture (reference pointnet2_msg_cls.py:45-78):
+
+  SA1 (npoint 512): scales (r=0.1, ns=16, mlp [C, 64, 64]),
+                            (r=0.2, ns=32, mlp [C, 64, 128])
+  SA2 (npoint 128): scales (r=0.2, ns=32, mlp [195, 128, 128]),
+                            (r=0.4, ns=64, mlp [195, 128, 128])
+  SA3 (global):     mlp [259, 256, 256]
+
+with use_xyz=True. Channel-last throughout; geometry stays float32.
+
+Each SA scale runs as one fused kernel call (:mod:`or4d_tpu_torch.ops.sa_group_mlp`)
+on the delayed-aggregation form of its first layer, W @ [p - q, f] =
+W @ [p, f] - W_xyz @ q, with both eval BNs folded to affines. Supports wider
+than one 512-point chunk take the FPS kernel's hit counts as search bounds
+and build the layer-1 rows inside the kernel from the channel-major raw
+[xyz|features] plane (the JAX package's v4 raw mode); narrower supports
+(SA2's 512 centroids) use a precomputed layer-1 plane. The relation
+encoder's paired mode runs SA1 once per unordered pair and emits both
+directions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Sequence
+
+import torch
+from torch import nn
+
+from or4d_tpu_torch.models.layers import Dense, MaskedBatchNorm, SharedMLP
+from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_counts
+from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+
+SA1_RADII = (0.1, 0.2)
+SA2_RADII = (0.2, 0.4)
+
+
+@dataclasses.dataclass(frozen=True)
+class SAScale:
+    radius: float
+    nsample: int
+    mlp: tuple[int, ...]  # widths after the input
+
+
+class DelayedSharedMLP(nn.Module):
+    """SharedMLP for grouped neighbourhoods with delayed aggregation.
+    Parameter names mirror SharedMLP (dense_i/bn_i)."""
+
+    def __init__(self, in_features: int, channels: Sequence[int], dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.in_features = in_features
+        self.channels = tuple(channels)
+        self.dtype = dtype
+        widths = [in_features, *channels]
+        for i, ch in enumerate(channels):
+            self.add_module(f"dense_{i}", Dense(widths[i], ch, bias=False, dtype=dtype, device=device, generator=generator))
+            self.add_module(f"bn_{i}", MaskedBatchNorm(ch, device=device))
+
+    def w0_matrix(self) -> torch.Tensor:
+        """The layer-1 weight (C0, C1) in the compute dtype."""
+        return self.dense_0.weight.t().to(self.dtype).contiguous()
+
+    def bq_term(self, new_xyz: torch.Tensor) -> torch.Tensor:
+        """Bq = dense_0([q, 0...]): the per-query term, in the compute dtype."""
+        pad = new_xyz.new_zeros(new_xyz.shape[:-1] + (self.in_features - 3,))
+        return self.dense_0(torch.cat([new_xyz, pad], dim=-1).to(self.dtype)).contiguous()
+
+    def pre(self, xyz: torch.Tensor, features: torch.Tensor | None) -> torch.Tensor:
+        """Per-support layer-1 plane A = dense_0([p, f_p]) (B, N, C1)."""
+        x = xyz if features is None else torch.cat([xyz, features.to(xyz.dtype)], dim=-1)
+        return self.dense_0(x.to(self.dtype)).contiguous()
+
+    def fused_eval_params(self):
+        """(a0, b0, W1, a1, b1): both eval BNs folded to per-channel affines,
+        probed through the BN modules with 0 and 1 as the JAX package does
+        (pointnet2.py:149-164), and the second layer's weight (C1, C2)."""
+        if len(self.channels) != 2:
+            raise ValueError("the fused eval SA stage takes 2-layer MLPs")
+        c1, c2 = self.channels
+        dev = self.dense_0.weight.device
+
+        def affine(bn, c):
+            z = torch.zeros(1, c, device=dev)
+            b = bn(z)[0]
+            return (bn(z + 1.0)[0] - b).contiguous(), b.contiguous()
+
+        a0, b0 = affine(self.bn_0, c1)
+        a1, b1 = affine(self.bn_1, c2)
+        W1 = self.dense_1.weight.t().to(self.dtype).contiguous()
+        return a0, b0, W1, a1, b1
+
+
+class SetAbstractionMSG(nn.Module):
+    """Multi-scale grouping set abstraction, eval only.
+
+    ``forward(xyz (B, N, 3), features (B, N, C) or None, features_alt)`` ->
+    (new_xyz (B, npoint, 3), features (B, npoint, sum of scale widths)), or
+    with ``features_alt`` (paired) (B, npoint, 2, sum of widths): the
+    directions differ only in the last feature channel.
+    """
+
+    def __init__(self, in_features: int, npoint: int, scales: Sequence[SAScale], dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        self.npoint = npoint
+        self.scales = tuple(scales)
+        self.dtype = dtype
+        for si, sc in enumerate(self.scales):
+            self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
+
+    def forward(self, xyz, features, features_alt=None):
+        B, N, _ = xyz.shape
+        xyz = xyz.contiguous()
+        paired = features_alt is not None
+        needs = [None] * len(self.scales)
+        if N > CHUNK:
+            # the FPS kernel's per-chunk hit counts bound each query's search
+            idx, counts = furthest_point_sample_with_counts(xyz, self.npoint, tuple(sc.radius for sc in self.scales))
+            scale_spec = tuple((sc.radius, sc.nsample) for sc in self.scales)
+            needs = [need.int().contiguous() for need, _thr in counts_to_bounds(scale_spec, counts)]
+        else:
+            idx = furthest_point_sample(xyz, self.npoint)
+        new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+
+        raw = None
+        if paired or N > CHUNK:
+            parts = [xyz] + ([] if features is None else [features.to(xyz.dtype)])
+            if paired:
+                parts.append(features_alt[..., -1:].to(xyz.dtype))
+            raw = torch.cat(parts, dim=-1).to(self.dtype).transpose(1, 2).contiguous()  # (B, C0[+1], N)
+        outs = []
+        for si, sc in enumerate(self.scales):
+            m = getattr(self, f"mlp_{si}")
+            a0, b0, W1, a1, b1 = m.fused_eval_params()
+            kw = dict(raw=raw, W0=m.w0_matrix(), paired=paired) if raw is not None else dict(A=m.pre(xyz, features))
+            outs.append(sa_group_mlp(xyz, new_xyz, sc.radius, sc.nsample, m.bq_term(new_xyz), a0, b0, W1, a1, b1,
+                                     need=needs[si], **kw))
+        if paired:
+            # per scale (B, M, 2*C2) -> (B, M, 2, C2): direction before channels
+            outs = [o.view(B, self.npoint, 2, -1) for o in outs]
+        return new_xyz, torch.cat(outs, dim=-1)
+
+
+class SetAbstractionAll(nn.Module):
+    """Global set abstraction (PointnetSAModule with GroupAll)."""
+
+    def __init__(self, in_features: int, mlp: Sequence[int], dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp = SharedMLP(in_features, mlp, dtype, device, generator)
+
+    def forward(self, xyz, features):
+        x = torch.cat([xyz.to(features.dtype), features], dim=-1)
+        return self.mlp(x.to(self.dtype)).amax(dim=1)
+
+
+class PointNet2MSGEncoder(nn.Module):
+    """The reference PointNetfeat2: MSG backbone as a global feature
+    extractor. ``forward(pc (B, P, input_dim))`` -> (B, out_size).
+
+    ``paired=True``: ``pc`` is (B, P, 8) — [xyz, rgb, mask_fwd, mask_rev]
+    pair-shared relation crops, one row per unordered pair. Returns
+    (2B, out_size) interleaved [pair0-fwd, pair0-rev, pair1-fwd, ...]; SA1
+    runs once per pair, SA2/SA3 per direction.
+    """
+
+    def __init__(self, input_dim: int = 6, out_size: int = 256, sa_npoints=(512, 128),
+                 sa_nsamples=((16, 32), (32, 64)), dtype=torch.float32, device=None, generator=None):
+        super().__init__()
+        self.sa1 = SetAbstractionMSG(
+            input_dim, sa_npoints[0],
+            (SAScale(SA1_RADII[0], sa_nsamples[0][0], (64, 64)), SAScale(SA1_RADII[1], sa_nsamples[0][1], (64, 128))),
+            dtype, device, generator,
+        )
+        c1 = 64 + 128
+        self.sa2 = SetAbstractionMSG(
+            3 + c1, sa_npoints[1],
+            (SAScale(SA2_RADII[0], sa_nsamples[1][0], (128, 128)), SAScale(SA2_RADII[1], sa_nsamples[1][1], (128, 128))),
+            dtype, device, generator,
+        )
+        self.sa3 = SetAbstractionAll(3 + 256, (256, out_size), dtype, device, generator)
+
+    def forward(self, pc: torch.Tensor, paired: bool = False) -> torch.Tensor:
+        xyz = pc[..., 0:3].float().contiguous()  # geometry stays f32
+        if paired:
+            feats_fwd = pc[..., 3:7]
+            feats_rev = torch.cat([pc[..., 3:6], pc[..., 7:8]], dim=-1)
+            new_xyz, feats = self.sa1(xyz, feats_fwd, features_alt=feats_rev)  # (B, M, 2, C)
+            B, M, _, C = feats.shape
+            feats = feats.permute(0, 2, 1, 3).reshape(B * 2, M, C)
+            xyz = new_xyz.repeat_interleave(2, dim=0)
+        else:
+            features = pc[..., 3:] if pc.shape[-1] > 3 else None
+            xyz, feats = self.sa1(xyz, features)
+        xyz, feats = self.sa2(xyz, feats.contiguous())
+        return self.sa3(xyz, feats)

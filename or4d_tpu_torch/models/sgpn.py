@@ -1,0 +1,130 @@
+"""SGPN — the scene-graph prediction model, eval forward (port of
+``or4d_tpu/models/sgpn.py``).
+
+Reference ``scene_graph_prediction_model.py:30-109``: PointNet++ MSG object
+encoder on (O, 4000, 6) crops and relation encoder on (E, 8000, 7) union
+crops -> 256-d each; TripletGCN (2 layers, hidden 512) over the fully
+connected scene graph; object head on GCN node features and relation head on
+GCN edge features with subject/object one-hot late fusion.
+
+The model consumes a whole :class:`SceneBatch` (scenes stacked, objects and
+edges padded). A :class:`SlotPack` runs the encoders over the valid rows
+only and scatters the features back; a paired pack (pair-shared crops) runs
+the relation encoder once per unordered pair and scatters both directions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from or4d_tpu_torch.config import ExperimentConfig
+from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+from or4d_tpu_torch.device import resolve_device
+from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead
+from or4d_tpu_torch.models.pointnet2 import PointNet2MSGEncoder
+from or4d_tpu_torch.models.triplet_gcn import TripletGCN
+
+
+@dataclasses.dataclass
+class SGPNOutputs:
+    obj_logprobs: torch.Tensor  # (S, O, num_classes) float32
+    rel_logprobs: torch.Tensor  # (S, E, num_relations) float32
+    obj_features: torch.Tensor  # (S, O, D)
+    rel_features: torch.Tensor  # (S, E, D)
+
+
+class SGPN(nn.Module):
+    """Parameters are made on the CPU from ``generator`` (seeded by ``seed``
+    when none is given) and moved to ``device`` (default ``cuda``; raises
+    without a card unless ``device="cpu"``)."""
+
+    def __init__(self, num_classes: int = 12, num_relations: int = 15, point_feature_size: int = 256,
+                 edge_feature_size: int = 256, gcn_hidden: int = 512, gcn_layers: int = 2,
+                 obj_pred_from_gcn: bool = True, compute_dtype=torch.float32, sa_npoints=(512, 128),
+                 sa_nsamples=((16, 32), (32, 64)), device=None, generator: torch.Generator | None = None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        self.compute_dtype = compute_dtype
+        self.point_feature_size = point_feature_size
+        self.edge_feature_size = edge_feature_size
+        self.obj_pred_from_gcn = obj_pred_from_gcn
+        enc = dict(sa_npoints=tuple(sa_npoints), sa_nsamples=tuple(tuple(s) for s in sa_nsamples),
+                   dtype=compute_dtype, device=device, generator=generator)
+        # xyz + rgb object crops; xyz + rgb + subject/object mask relation crops
+        self.obj_encoder = PointNet2MSGEncoder(6, point_feature_size, **enc)
+        self.rel_encoder = PointNet2MSGEncoder(7, edge_feature_size, **enc)
+        self.gcn = TripletGCN(gcn_layers, point_feature_size, edge_feature_size, gcn_hidden, device, generator)
+        self.obj_predictor = ObjectClsHead(point_feature_size, num_classes, device, generator)
+        self.rel_predictor = RelationClsHead(edge_feature_size, num_relations, device=device, generator=generator)
+        self.requires_grad_(False)  # eval only: the train path is not ported yet
+        self.eval()
+
+    @classmethod
+    def from_config(cls, cfg: ExperimentConfig, num_classes: int, num_relations: int, **kw) -> "SGPN":
+        if cfg.image_input == "full" or cfg.model.multi_rel_outputs:
+            raise NotImplementedError("the image branch and MULTI_REL_OUTPUTS are not ported yet")
+        return cls(
+            num_classes=num_classes,
+            num_relations=num_relations,
+            point_feature_size=cfg.model.point_feature_size,
+            edge_feature_size=cfg.model.edge_feature_size,
+            gcn_hidden=cfg.model.gcn_hidden_feature_size,
+            gcn_layers=cfg.model.n_layers,
+            obj_pred_from_gcn=cfg.model.obj_pred_from_gcn,
+            compute_dtype=torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16" else torch.float32,
+            sa_npoints=tuple(cfg.model.sa_npoints),
+            sa_nsamples=tuple(tuple(s) for s in cfg.model.sa_nsamples),
+            **kw,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.gcn.layer_0.nn1.dense_0.weight.device
+
+    @torch.no_grad()
+    def forward(self, batch: SceneBatch, pack: SlotPack | None = None) -> SGPNOutputs:
+        """``batch`` and ``pack`` hold tensors on the model's device."""
+        S, O, Po, Co = batch.obj_points.shape
+        _, E, Pr, Cr = batch.rel_points.shape
+        obj_flat = batch.obj_points.reshape(S * O, Po, Co).float()
+        rel_flat = batch.rel_points.reshape(S * E, Pr, Cr).float()
+        paired = pack is not None and pack.paired
+        if pack is not None:
+            obj_flat = obj_flat[pack.obj_idx]
+            rel_flat = rel_flat[pack.pair_idx if paired else pack.edge_idx]
+        if paired:
+            # forward crops -> both mask channels (1 <-> 2 swapped for the reverse)
+            m = rel_flat[..., 6:7]
+            rel_flat = torch.cat([rel_flat[..., :6], m, torch.where(m > 0, 3.0 - m, torch.zeros_like(m))], dim=-1)
+
+        obj_feat = self.obj_encoder(obj_flat)
+        rel_feat = self.rel_encoder(rel_flat, paired=paired)
+        D, De = self.point_feature_size, self.edge_feature_size
+        if pack is not None:
+            ov = pack.obj_valid[:, None].to(obj_feat.dtype)
+            obj_feat = obj_feat.new_zeros(S * O, D).index_add_(0, pack.obj_idx, obj_feat * ov)
+            if paired:
+                pv = pack.pair_valid[:, None].to(rel_feat.dtype)
+                rel_feat = (rel_feat.new_zeros(S * E, De)
+                            .index_add_(0, pack.pair_idx, rel_feat[0::2] * pv)
+                            .index_add_(0, pack.pair_rev_idx, rel_feat[1::2] * pv))
+            else:
+                ev = pack.edge_valid[:, None].to(rel_feat.dtype)
+                rel_feat = rel_feat.new_zeros(S * E, De).index_add_(0, pack.edge_idx, rel_feat * ev)
+        obj_feat = obj_feat.reshape(S, O, D)
+        rel_feat = rel_feat.reshape(S, E, De)
+
+        gcn_obj, gcn_rel = self.gcn(obj_feat, rel_feat, batch.edge_index, batch.obj_mask, batch.edge_mask)
+        obj_logprobs = self.obj_predictor(gcn_obj if self.obj_pred_from_gcn else obj_feat)
+        rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot)
+        return SGPNOutputs(
+            obj_logprobs=obj_logprobs.float(),
+            rel_logprobs=rel_logprobs.float(),
+            obj_features=obj_feat,
+            rel_features=rel_feat,
+        )

@@ -1,0 +1,22 @@
+"""Point-cloud ops of the port: FPS and the fused eval SA stage (each a CUDA
+kernel beside its plain PyTorch version) and the plain index ball query.
+
+Every kernel wrapper counts its launches in its module's ``LAUNCHES`` dict;
+:func:`launch_counts` and :func:`reset_launch_counts` read and zero them all,
+so a run can show that a path went through the kernels.
+"""
+
+from or4d_tpu_torch.ops import fps, sa_group_mlp
+
+_COUNTERS = {"fps": fps.LAUNCHES, "sa_group_mlp": sa_group_mlp.LAUNCHES}
+
+
+def launch_counts() -> dict[str, int]:
+    """{"fps.fps": n, "fps.fps_counts": n, "sa_group_mlp.raw": n, ...}"""
+    return {f"{mod}.{k}": v for mod, d in _COUNTERS.items() for k, v in d.items()}
+
+
+def reset_launch_counts() -> None:
+    for d in _COUNTERS.values():
+        for k in d:
+            d[k] = 0

@@ -1,0 +1,130 @@
+"""Furthest point sampling: the CUDA kernel ``csrc/fps.cu`` and its plain
+PyTorch version.
+
+Replaces ``furthest_point_sample_pallas`` (or4d_tpu/ops/pallas_fps.py:200)
+and ``furthest_point_sample_with_counts`` (pallas_fps.py:156). What bounds
+the kernel on the H100 and what its design does about it is in the header of
+``csrc/fps.cu``.
+
+Semantics (reference sampling_gpu.cu:69-173): index 0 first; a running
+min-distance over all points; the point with the largest running distance is
+selected next, ties to the lowest index; points with |p|^2 <= 1e-3 are never
+selected and never lower the running distance below -1. With ``radii`` the
+per-radius hit counts of every selected query over 512-point scan-order
+chunks come out as well (the bounds the fused SA kernel consumes).
+
+The wrapper takes the plain version for CPU tensors only; a CUDA tensor
+always launches the kernel, and a failed launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+CHUNK = 512  # scan-order chunk width of the hit counts
+_MAG_EPS = float(np.float32(1e-3))
+_MAX_RADII = 4
+_MAX_N = 8192  # 512 threads x 16 points in registers
+
+# kernel launches, per variant: "fps" (no counts) and "fps_counts"
+LAUNCHES = {"fps": 0, "fps_counts": 0}
+
+
+def _r2(radius: float) -> float:
+    """r*r in Python double, then rounded to f32 — the reference's value."""
+    return float(np.float32(radius * radius))
+
+
+def _check(xyz: torch.Tensor, npoint: int, radii: tuple) -> None:
+    if not isinstance(xyz, torch.Tensor) or xyz.dim() != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"furthest_point_sample expects a (B, N, 3) tensor, got {getattr(xyz, 'shape', xyz)}")
+    if xyz.dtype != torch.float32:
+        raise TypeError(f"furthest_point_sample expects float32 coordinates, got {xyz.dtype}")
+    if not xyz.is_contiguous():
+        raise ValueError("furthest_point_sample expects a contiguous tensor")
+    if npoint < 1 or xyz.shape[1] < 1:
+        raise ValueError(f"npoint={npoint} and N={xyz.shape[1]} must be >= 1")
+    if len(radii) > _MAX_RADII:
+        raise ValueError(f"at most {_MAX_RADII} radii, got {len(radii)}")
+
+
+def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...] = ()):
+    """The plain PyTorch version: idx (B, npoint) int32, plus a tuple of
+    per-radius counts (B, npoint, ceil(N/512)) float32 when ``radii``."""
+    B, N, _ = xyz.shape
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    mag = x * x + y * y + z * z
+    mind = torch.where(mag > _MAG_EPS, torch.full_like(mag, float("inf")), torch.full_like(mag, -1.0))
+    idx = torch.zeros(B, npoint, dtype=torch.int32, device=xyz.device)
+    nch = -(-N // CHUNK)
+    counts = [torch.zeros(B, npoint, nch, dtype=torch.float32, device=xyz.device) for _ in radii]
+    r2s = [_r2(r) for r in radii]
+    rows = torch.arange(B, device=xyz.device)
+    sel = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    for j in range(1, npoint + (1 if radii else 0)):
+        dx = x - x[rows, sel][:, None]
+        dy = y - y[rows, sel][:, None]
+        dz = z - z[rows, sel][:, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        for s, r2 in enumerate(r2s):
+            hits = torch.nn.functional.pad((d2 < r2).float(), (0, nch * CHUNK - N))
+            counts[s][:, j - 1] = hits.view(B, nch, CHUNK).sum(-1)
+        if j == npoint:
+            break
+        mind = torch.minimum(mind, d2)
+        sel = torch.argmax(mind, dim=1)  # first maximal index
+        idx[:, j] = sel.int()
+    return (idx, tuple(counts)) if radii else idx
+
+
+def _launch(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...]):
+    from or4d_tpu_torch.ops._build import library
+
+    B, N, _ = xyz.shape
+    if N > _MAX_N:
+        raise ValueError(f"the FPS kernel takes at most {_MAX_N} points per cloud, got {N}")
+    lib = library("fps")
+    fn = lib.or4d_fps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = xyz.device
+    idx = torch.empty(B, npoint, dtype=torch.int32, device=dev)
+    nch = -(-N // CHUNK)
+    counts = torch.empty(len(radii), B, npoint, nch, dtype=torch.float32, device=dev) if radii else None
+    r2 = (ctypes.c_float * _MAX_RADII)(*[_r2(r) for r in radii])
+    if B > 0:
+        with torch.cuda.device(dev):
+            err = fn(xyz.data_ptr(), B, N, npoint, len(radii), ctypes.cast(r2, ctypes.c_void_p),
+                     idx.data_ptr(), counts.data_ptr() if counts is not None else None,
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"fps kernel launch failed: CUDA error {err}")
+        LAUNCHES["fps_counts" if radii else "fps"] += 1
+    return (idx, tuple(counts.unbind(0))) if radii else idx
+
+
+def _fps(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...]):
+    radii = tuple(float(r) for r in radii)
+    _check(xyz, npoint, radii)
+    if xyz.device.type == "cpu":
+        return furthest_point_sample_plain(xyz, npoint, radii)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"furthest_point_sample: unsupported device {xyz.device}")
+    return _launch(xyz, npoint, radii)
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    """(B, N, 3) float32 -> (B, npoint) int32 FPS indices."""
+    return _fps(xyz, npoint, ())
+
+
+def furthest_point_sample_with_counts(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...]):
+    """FPS indices and, per radius, (B, npoint, ceil(N/512)) float32 hit
+    counts of each selected query over 512-point scan-order chunks."""
+    if not radii:
+        raise ValueError("furthest_point_sample_with_counts needs at least one radius")
+    return _fps(xyz, npoint, tuple(radii))

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test carries the ``cuda`` marker and skips inside the test when no
+card is present. This file imports no JAX, so it also runs on a machine that
+has PyTorch and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+from or4d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_with_counts
+from or4d_tpu_torch.ops.sa_group_mlp import sa_group_mlp
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cloud(seed, B, N):
+    rng = np.random.default_rng(seed)
+    xyz = (rng.standard_normal((B, N, 3)) * 0.5).astype(np.float32)
+    xyz[:, 3:6] = 0.0  # |p|^2 <= 1e-3: never selected
+    return torch.from_numpy(xyz)
+
+
+@pytest.mark.parametrize("N,npoint", [(1, 1), (300, 64), (512, 128), (1100, 128), (4000, 512), (8000, 512)])
+def test_fps_kernel_exact(card, N, npoint):
+    xyz = _cloud(N, 3, N)
+    reset_launch_counts()
+    got = furthest_point_sample(xyz.to(card), npoint)
+    want = furthest_point_sample(xyz, npoint)
+    assert launch_counts()["fps.fps"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,radii", [(700, (0.1,)), (1100, (0.15, 0.3)), (8000, (0.1, 0.2))])
+def test_fps_counts_kernel_exact(card, N, radii):
+    xyz = _cloud(N + 1, 2, N)
+    idx, counts = furthest_point_sample_with_counts(xyz.to(card), 128, radii)
+    widx, wcounts = furthest_point_sample_with_counts(xyz, 128, radii)
+    torch.testing.assert_close(idx.cpu(), widx, rtol=0, atol=0)
+    for c, w in zip(counts, wcounts):
+        torch.testing.assert_close(c.cpu(), w, rtol=0, atol=0)
+
+
+def _sa_inputs(seed, B, N, M, C0, C1, C2, paired, dtype, raw_mode=True):
+    g = torch.Generator().manual_seed(seed)
+    xyz = _cloud(seed, B, N)
+    new_xyz = xyz[:, torch.randperm(N, generator=g)[:M]].contiguous()
+    args = [xyz, new_xyz, 0.2, 32, (torch.randn(B, M, C1, generator=g) * 0.5).to(dtype),
+            torch.rand(C1, generator=g) + 0.5, torch.randn(C1, generator=g) * 0.2,
+            (torch.randn(C1, C2, generator=g) / C1 ** 0.5).to(dtype),
+            torch.rand(C2, generator=g) + 0.5, torch.randn(C2, generator=g) * 0.2]
+    if raw_mode:
+        kw = dict(raw=torch.randn(B, C0 + int(paired), N, generator=g).to(dtype),
+                  W0=(torch.randn(C0, C1, generator=g) / C0 ** 0.5).to(dtype), paired=paired)
+    else:
+        kw = dict(A=torch.randn(B, N, C1, generator=g).to(dtype))
+    return args, kw
+
+
+def _on(x, dev):
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["raw", "paired", "plane"])
+def test_sa_kernel_matches_plain(card, dtype, mode):
+    args, kw = _sa_inputs(3, 4, 1100, 128, 7, 64, 128, mode == "paired", dtype, mode != "plane")
+    want = sa_group_mlp(*args, **kw)
+    reset_launch_counts()
+    got = sa_group_mlp(*[_on(a, card) for a in args], **{k: _on(v, card) for k, v in kw.items()})
+    assert launch_counts()["sa_group_mlp." + ("plane" if mode == "plane" else "raw")] == 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_sa_kernel_need_bound_changes_nothing(card):
+    xyz = _cloud(5, 2, 1100).to(card)
+    idx, counts = furthest_point_sample_with_counts(xyz, 128, (0.2,))
+    new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+    from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
+
+    need = counts_to_bounds(((0.2, 32),), counts)[0][0].int().contiguous()
+    args, kw = _sa_inputs(6, 2, 1100, 128, 6, 64, 64, False, torch.float32)
+    args[0], args[1] = xyz, new_xyz
+    args = [_on(a, card) for a in args]
+    kw = {k: _on(v, card) for k, v in kw.items()}
+    torch.testing.assert_close(sa_group_mlp(*args, **kw, need=need), sa_group_mlp(*args, **kw), rtol=0, atol=0)
+
+
+def test_kernel_wrappers_raise_outside_limits(card):
+    with pytest.raises(ValueError):
+        furthest_point_sample(_cloud(0, 1, 9000).to(card), 16)
+    args, kw = _sa_inputs(7, 1, 600, 32, 6, 160, 64, False, torch.float32)
+    with pytest.raises(ValueError):
+        sa_group_mlp(*[_on(a, card) for a in args], **{k: _on(v, card) for k, v in kw.items()})

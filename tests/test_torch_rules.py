@@ -1,0 +1,122 @@
+"""Rules of the PyTorch port that are not numerics:
+
+* no module of ``or4d_tpu_torch`` and not ``chip_smoke.py`` imports jax,
+  flax or the JAX package;
+* entry points raise without a card unless they are given ``device="cpu"``;
+* a kernel build with no compiler raises (no plain-version fallback);
+* the weight converter raises on a missing or an extra key.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from or4d_tpu_torch import resolve_device
+from or4d_tpu_torch.convert import from_jax_variables
+from or4d_tpu_torch.data.scene_batch import SlotPack
+from or4d_tpu_torch.data.synthetic import make_scene_batch
+from or4d_tpu_torch.config import DatasetConfig
+from or4d_tpu_torch.models.heads import ObjectClsHead
+from or4d_tpu_torch.models.sgpn import SGPN
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "or4d_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    from or4d_tpu_torch import infer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SGPN(sa_npoints=(8, 4), sa_nsamples=((2, 2), (2, 2)))
+    out = tmp_path / "rels.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["--synthetic", "--scenes", "1", "--config", "tiny", "--output", str(out)])
+    assert not out.exists()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_infer_cli_on_cpu_writes_scan_relations(tmp_path):
+    from or4d_tpu_torch import infer
+
+    out = tmp_path / "rels.json"
+    rels = infer.main(["--synthetic", "--scenes", "2", "--config", "tiny", "--output", str(out), "--device", "cpu"])
+    import json
+
+    assert json.loads(out.read_text()) == json.loads(json.dumps(rels))
+    assert set(rels) == {"1_000000", "1_000001"}
+    assert all(len(t) == 3 for v in rels.values() for t in v)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from or4d_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+
+
+def _head_variables(seed=0):
+    rng = np.random.default_rng(seed)
+    p = {f"fc{i}": {"kernel": rng.standard_normal((a, b)).astype(np.float32), "bias": np.zeros(b, np.float32)}
+         for i, (a, b) in enumerate([(32, 512), (512, 256), (256, 12)], start=1)}
+    return {"params": p}
+
+
+def test_converter_maps_and_transposes():
+    head = ObjectClsHead(32, 12, device="cpu")
+    v = _head_variables()
+    sd = from_jax_variables(v, head)
+    np.testing.assert_array_equal(sd["fc1.weight"].numpy(), v["params"]["fc1"]["kernel"].T)
+    head.load_state_dict(sd)
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape"])
+def test_converter_raises(fault):
+    head = ObjectClsHead(32, 12, device="cpu")
+    v = _head_variables()
+    if fault == "missing":
+        del v["params"]["fc2"]["bias"]
+    elif fault == "extra":
+        v["params"]["fc4"] = {"bias": np.zeros(3, np.float32)}
+    else:
+        v["params"]["fc3"]["kernel"] = np.zeros((256, 11), np.float32)
+    with pytest.raises(KeyError if fault != "shape" else ValueError):
+        from_jax_variables(v, head)
+
+
+def test_paired_pack_rejects_unshared_batch():
+    ds = DatasetConfig(num_points_objects=64, num_points_relation=64, max_objects=5, max_edges=20)
+    batch = make_scene_batch(1, seed=1, n_objects=4, ds=ds, points_per_obj=150)
+    with pytest.raises(ValueError, match="pair"):
+        SlotPack.build(batch, bucket=8, paired=True)
+    pack = SlotPack.build(batch, bucket=8)
+    assert pack.pair_idx is None and int(pack.edge_valid.sum()) == 12
