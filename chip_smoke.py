@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
-NVIDIA GPU: the SGPN eval (serving) path at the paper's full widths.
+NVIDIA GPU: the SGPN eval (serving) path and the SGPN train step at the
+paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
 
-Every run drives all five phases, each printing JSON lines; any failure
-exits non-zero, and nothing runs on the CPU except the one CPU reference
-pass of the slice phase.
+Every run drives all phases, each printing JSON lines; any failure exits
+non-zero, and nothing runs on the CPU except the CPU reference passes of the
+slice and train phases.
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit.
 2. build   — nvcc builds every kernel source; the ptxas register, shared
@@ -23,6 +24,26 @@ pass of the slice phase.
 5. timing  — CUDA-event times of each kernel on the inputs of an S=64
              bfloat16 batch (the bench.py default) beside its plain version
              and its bound; end-to-end batch time, scenes/s and peak memory.
+6. check_train — the train grouping kernels (forward and backward, raw and
+             plane mode) against their plain versions on the card, on the
+             inputs and cotangents of one S=8 float32 ``no_gt`` train step
+             (cut to 64 clouds), in float32 and bfloat16: forwards exactly,
+             dA within 1e-5 and dW0 within 1e-4 of their largest value
+             (another summation order), plus one bf16 ulp in bfloat16.
+7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes:
+             finite losses, and every launch counter of the train path (FPS
+             with and without counts, both grouping kernels forward and
+             backward) rises. Then one float32 S=1 step on the card and on
+             the CPU from the same weights and random draws: losses within
+             1e-4, every gradient within 1e-2 and every updated parameter
+             within 1e-3 of the model's largest (a ~1e-5 forward difference
+             flips a few max-pool winners, each moving a slot's gradient).
+             Then ``Trainer.evaluate`` gives a finite macro F1.
+8. timing_train — ms per train step, scenes/s and peak memory in float32
+             and bfloat16 at S=8 (or the largest of 4 and 2 that fits), the
+             float32 step's device time by kernel (torch.profiler), and each
+             grouping kernel's ms per step on the step's own inputs beside
+             its plain version and its bound.
 
 Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``. Weights are random, from a seed.
@@ -59,7 +80,17 @@ ROWS = (
     ("sa_group_mlp_plane", "sa_group_mlp.plane", "or4d_tpu_torch/ops/csrc/sa_group_mlp.cu",
      "or4d_tpu/ops/pallas_ball_query.py:1064"),
 )
+# TPU kernel rows 5 (ball_query_group_pallas_gated_raw: fwd and its VJP's
+# bwd) and 6 (ball_query_group_pallas), driven by the train step
+GROUP_SRC = "or4d_tpu_torch/ops/csrc/ball_query_group.cu"
+TRAIN_ROWS = (
+    ("group_raw_fwd", "group_raw.fwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:1743"),
+    ("group_raw_bwd", "group_raw.bwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:1907"),
+    ("group_fwd", "group.fwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:295"),
+    ("group_bwd", "group.bwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:413"),
+)
 SA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {"group_raw_bwd": 1e-4, "group_bwd": 1e-5}  # of the largest |value|
 
 
 def emit(obj) -> None:
@@ -78,31 +109,47 @@ def nvidia_smi_line() -> str:
 
 class Recorder:
     """Wraps the kernel entry points the encoder calls and keeps each call's
-    arguments (tensors on the card) while ``on``."""
+    arguments (tensors on the card) while ``on``, as [name, args, kw, g]:
+    ``g`` is the cotangent of the call's output, caught by a hook in the
+    backward. With ``rows`` the tensors are cut to that many clouds and
+    copied (W0 is a weight and stays whole)."""
 
-    NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp")
+    NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp",
+             "ball_query_group", "ball_query_group_raw")
 
     def __init__(self):
         from or4d_tpu_torch.models import pointnet2
 
         self.orig = {n: getattr(pointnet2, n) for n in self.NAMES}
-        self.calls: list[tuple[str, tuple, dict]] = []
+        self.calls: list[list] = []
         self.on = False
+        self.rows = None
         for n in self.NAMES:
             setattr(pointnet2, n, self._wrap(n))
+
+    def _keep(self, t, whole=False):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach()
+        return t if self.rows is None else (t if whole else t[: self.rows]).clone()
 
     def _wrap(self, name):
         fn = self.orig[name]
 
         def wrapped(*args, **kw):
+            out = fn(*args, **kw)
             if self.on:
-                self.calls.append((name, args, kw))
-            return fn(*args, **kw)
+                keep = [self._keep(a, whole=name == "ball_query_group_raw" and i == 4) for i, a in enumerate(args)]
+                rec = [name, tuple(keep), {k: self._keep(v) for k, v in kw.items()}, None]
+                self.calls.append(rec)
+                if isinstance(out, torch.Tensor) and out.requires_grad:
+                    out.register_hook(lambda g, rec=rec: rec.__setitem__(3, self._keep(g)))
+            return out
 
         return wrapped
 
-    def record(self, run):
-        self.calls, self.on = [], True
+    def record(self, run, rows=None):
+        self.calls, self.on, self.rows = [], True, rows
         try:
             run()
         finally:
@@ -171,11 +218,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def search_work(xyz, new_xyz, radius, ns, need) -> tuple[int, int]:
+    """(real slots, points scanned) of one ball-query search on these
+    inputs: a search ends at the ns-th hit; with counts (``need``) it ends
+    at the last hit it needs, without them a query short of ns hits scans
+    all N points. A query with no hit counts one slot."""
+    from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    real, scanned = 0, 0
+    step = max(1, (1 << 26) // (M * N))
+    for s in range(0, B, step):
+        idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
+        thr = total.clamp(max=ns)
+        real += int(thr.clamp(min=1).sum())
+        last = torch.gather(idx, 2, (thr - 1).clamp(min=0)[..., None])[..., 0] + 1
+        full = thr < ns if need is None else torch.zeros_like(thr, dtype=torch.bool)
+        scanned += int(torch.where(full | (thr == 0), torch.full_like(last, N), last).sum())
+    return real, scanned
+
+
 def bound(name, args, kw) -> tuple[float, str, dict]:
     """(least ms, "bytes"/"operations", counts) for one call on these inputs:
     every input read once and every output written once over the HBM rate,
     against the operations this data needs over the peak for their type."""
-    from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
     from or4d_tpu_torch.ops.fps import CHUNK
 
     if name.startswith("furthest"):
@@ -201,17 +268,7 @@ def bound(name, args, kw) -> tuple[float, str, dict]:
         nbytes = (xyz.numel() * 4 + new_xyz.numel() * 4 + main.numel() * es + Bq.numel() * es
                   + W1.numel() * es + (W0.numel() * es if W0 is not None else 0) + 4 * (C1 + C2) * 4
                   + (need.numel() * 4 if need is not None else 0) + B * M * C2 * halves * es)
-        real, scanned = 0, 0
-        step = max(1, (1 << 26) // (M * N))
-        for s in range(0, B, step):
-            idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
-            thr = total.clamp(max=ns)
-            real += int(thr.clamp(min=1).sum())
-            # a search ends at the ns-th hit; with counts it ends at the last
-            # hit it needs, without them a query short of ns hits scans all N
-            last = torch.gather(idx, 2, (thr - 1).clamp(min=0)[..., None])[..., 0] + 1
-            full = thr < ns if need is None else torch.zeros_like(thr, dtype=torch.bool)
-            scanned += int(torch.where(full | (thr == 0), torch.full_like(last, N), last).sum())
+        real, scanned = search_work(xyz, new_xyz, radius, ns, need)
         mm = real * halves * 2 * ((W0.shape[0] * C1 if W0 is not None else 0) + C1 * C2)
         f32_ops = scanned * 9 + real * halves * (4 * C1 + 3 * C2)
         # bf16 products run on the tensor cores, concurrently with the FP32
@@ -226,6 +283,74 @@ def bound(name, args, kw) -> tuple[float, str, dict]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
 
 
+def group_jobs(name, a, g, dtype=None):
+    """The two kernel calls a recorded grouping call stands for, as
+    {row: (kernel(), plain(), bound())}: the forward, and the backward on
+    the kernel forward's hit indices and the recorded cotangent ``g``. With
+    ``dtype`` the value operands (A, raw, W0, g) are cast to it."""
+    from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
+
+    cast = (lambda t: t.contiguous()) if dtype is None else (lambda t: t.to(dtype).contiguous())
+    g = cast(g)
+    es = g.element_size()
+    if name == "ball_query_group_raw":
+        xyz, q, r, ns, W0, raw, need = a
+        W0, raw = cast(W0), cast(raw)
+        fwd = lambda: bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw, need)
+        fwd_plain = lambda: bqgr.group_raw_fwd_plain(xyz, q, r, ns, W0, raw, need)
+        C0, C = W0.shape
+        main_bytes = raw.numel() * es + W0.numel() * es + (need.numel() * 4 if need is not None else 0)
+        prefix = "group_raw"
+    else:
+        xyz, q, r, ns, A = a
+        A, need, C0, C = cast(A), None, 0, A.shape[-1]
+        fwd = lambda: bqg.group_fwd(xyz, q, r, ns, A)
+        fwd_plain = lambda: bqg.group_fwd_plain(xyz, q, r, ns, A)
+        main_bytes = A.numel() * es
+        prefix = "group"
+    B, N, _ = xyz.shape
+    M = q.shape[1]
+    slots = B * M * ns
+    _out, idx = fwd()
+    if prefix == "group_raw":
+        bwd = lambda: bqgr.group_raw_bwd(idx, g, raw)
+        bwd_plain = lambda: bqgr.group_raw_bwd_plain(idx, g, raw)
+        bwd_out_bytes = C0 * C * es
+    else:
+        bwd = lambda: bqg.group_bwd(idx, g, N)
+        bwd_plain = lambda: bqg.group_bwd_plain(idx, g, N)
+        bwd_out_bytes = B * N * C * es
+
+    def fwd_bound():
+        real, scanned = search_work(xyz, q, r, ns, need)
+        nbytes = 12 * (B * N + B * M) + main_bytes + slots * (C * es + 4)
+        # distances over the scanned points; raw mode also builds each real
+        # slot's row (C0 x C multiply-adds)
+        return nbytes, scanned * 9 + real * 2 * C0 * C, {"real_slots": real, "scanned": scanned}
+
+    def bwd_bound():
+        valid = int((idx >= 0).sum())
+        nbytes = slots * (4 + C * es) + (raw.numel() * es if prefix == "group_raw" else 0) + bwd_out_bytes
+        return nbytes, valid * (2 * C0 * C if prefix == "group_raw" else C), {"valid_slots": valid}
+
+    shape = (tuple(xyz.shape), M, ns, C0, C)
+    return {f"{prefix}_fwd": (fwd, fwd_plain, fwd_bound, shape), f"{prefix}_bwd": (bwd, bwd_plain, bwd_bound, shape)}
+
+
+def as_bound(nbytes, f32_ops, info) -> tuple[float, str, dict]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, f32_ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), {
+        "bytes": nbytes, "f32_ops": f32_ops, **info}
+
+
+def bwd_close(row, got, want) -> bool:
+    """Backward tolerance: BWD_TOL of the largest |value|, plus one bf16 ulp
+    of each value in bfloat16 (the f32 sums round once)."""
+    scale = float(want.float().abs().max())
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    return bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=BWD_TOL[row] * scale))
+
+
 def build_batches(S: int, seed: int):
     from or4d_tpu_torch.config import DatasetConfig
     from or4d_tpu_torch.data.synthetic import make_scene_samples
@@ -233,6 +358,188 @@ def build_batches(S: int, seed: int):
     # bench.py's scenes: 12 objects x 4000 points, 132 edges x 8000 points
     return make_scene_samples(S, seed=seed, n_objects=9, ds=DatasetConfig(), points_per_obj=2000,
                               pair_shared=True)
+
+
+def profile_step(run, step_ms: float) -> dict:
+    """Device time of one run by kernel name (torch.profiler, CUDA
+    activity): the 12 largest, their sum over all kernels, and the busy
+    share of the step's host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # the kernels and copies themselves (the aten ops that launch them carry
+    # the same device time again)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return {"device_ms": device_ms, "busy_share": device_ms / step_ms,
+            "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in events[:12]]}
+
+
+def train_phases(args, rec, smi, results, stats) -> None:
+    """check_train, train and timing_train (see the module docstring). Adds
+    the train rows' checks, main-path launches and timings to ``stats``."""
+    import dataclasses
+    import gc
+    import math
+
+    from or4d_tpu_torch.config import NO_GT, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    # labeled scenes at paper shapes, one crop per directed edge (train data)
+    samples = make_scene_samples(8, seed=args.seed + 100, n_objects=9, ds=DatasetConfig(), points_per_obj=2000)
+    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
+    emit({"phase": "train_data", "scenes": len(samples), "host_seconds": time.perf_counter() - t0})
+
+    def trainer(dtype: str, device: str, seed: int) -> Trainer:
+        cfg = dataclasses.replace(NO_GT, tpu=dataclasses.replace(NO_GT.tpu, compute_dtype=dtype))
+        return Trainer(cfg, DEFAULT_VOCAB, *weights, device=device, seed=seed)
+
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    b8 = SceneBatch.stack(samples)
+    errs = stats["errs"]
+
+    # check_train: the grouping kernels on one S=8 step's inputs and cotangents
+    tr = trainer("float32", "cuda", args.seed)
+    calls = [c for c in rec.record(lambda: tr.train_step(b8, gen(1)), rows=64) if c[0].startswith("ball_query_group")]
+    torch.cuda.synchronize()
+    checks = []
+    for name, a, _kw, g in calls:
+        if g is None:
+            fail(f"{name}: no cotangent reached the recorded call")
+        for dt in (torch.float32, torch.bfloat16):
+            for row, (kern, plain, _b, shape) in group_jobs(name, a, g, dt).items():
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                d = max_abs_diff(got, want)
+                ok = d == 0.0 if row.endswith("fwd") else bwd_close(row, got, want)
+                vals = (got[0] if isinstance(got, tuple) else got).float()
+                checks.append({"row": row, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": ok,
+                               "max_abs_value": float(vals.abs().max())})
+                emit({"phase": "check_train", **checks[-1]})
+                errs[row] = max(errs.get(row, 0.0), d)
+                if not ok:
+                    fail(f"{row} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+    results["check_train"] = checks
+    del calls
+
+    # train: three steps of the main path, every train-path counter rises
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [{k: float(v) for k, v in tr.train_step(b8, gen(2 + k)).items()} for k in range(3)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats["launches"].update({c: launches[c] for _r, c, _s, _p in TRAIN_ROWS})
+    f1 = tr.evaluate([b8])
+    train = {"scenes": 8, "dtype": "float32", "losses": losses, "seconds": train_s, "launches": launches,
+             "macro_f1": f1}
+    missing = [c for c in ("fps.fps_counts", "fps.fps", *(r[1] for r in TRAIN_ROWS)) if launches.get(c, 0) == 0]
+    if missing:
+        fail(f"kernels not launched on the train path: {missing} ({launches})")
+    if not all(math.isfinite(v) for d in losses for v in d.values()) or not math.isfinite(f1):
+        fail(f"non-finite train losses or macro F1: {losses}, {f1}")
+    del tr
+
+    # one float32 S=1 step on the card and on the CPU: same weights and draws
+    b1 = SceneBatch.stack(samples[:1])
+    tg, tc = trainer("float32", "cuda", args.seed + 1), trainer("float32", "cpu", args.seed + 1)
+    pg = tg.train_step(b1, gen(5))
+    t0 = time.perf_counter()
+    pc = tc.train_step(b1, gen(5))
+    cpu_s = time.perf_counter() - t0
+    d_loss = max(abs(float(pg[k]) - float(pc[k])) for k in pg)
+    # differences against the model's largest gradient and parameter: a
+    # gradient that is rounding noise on both sides (a Dense bias feeding a
+    # BN) has no scale of its own, and AdamW moves every parameter by about
+    # +-lr whatever the size of its gradient
+    gscale = max(float(p.grad.abs().max()) for p in tc.model.parameters())
+    pscale = max(float(p.detach().abs().max()) for p in tc.model.parameters())
+    d_grad = d_param = 0.0
+    worst = ""
+    for (k, pgr), (_k, pcp) in zip(tg.model.named_parameters(), tc.model.named_parameters()):
+        dg = float((pgr.grad.cpu() - pcp.grad).abs().max()) / gscale
+        if dg > d_grad:
+            d_grad, worst = dg, k
+        d_param = max(d_param, float((pgr.detach().cpu() - pcp.detach()).abs().max()) / pscale)
+    train.update({"s1_loss_max_abs_diff": d_loss, "s1_grad_max_diff_of_largest": d_grad, "s1_grad_worst": worst,
+                  "s1_param_max_diff_of_largest": d_param, "cpu_reference_seconds": cpu_s})
+    results["train"] = train
+    emit({"phase": "train", **train})
+    # gradients: 1e-2 of the largest, not 1e-3: the card's and the CPU's
+    # forwards differ by ~1e-5, which flips the SA max-pool's winning slot
+    # for a few (query, channel) pairs and moves that slot's whole gradient
+    if d_loss > 1e-4 or d_grad > 1e-2 or d_param > 1e-3:
+        fail(f"S=1 float32 train step card vs CPU differs: loss {d_loss}, grad {d_grad} ({worst}), param {d_param}")
+    del tg, tc
+
+    # timing_train: step time and peak memory, then each grouping kernel
+    timing = []
+    timed_calls = None
+    for dtype in ("float32", "bfloat16"):
+        for S in (8, 4, 2):
+            tt = None
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                tt = trainer(dtype, "cuda", args.seed)
+                batch = SceneBatch.stack(samples[:S])
+                tt.train_step(batch, gen(11))  # warm-up
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                tt.train_step(batch, gen(12))
+                torch.cuda.synchronize()
+                per_step = launch_counts()
+                reps = 3
+                t0 = time.perf_counter()
+                for k in range(reps):
+                    tt.train_step(batch, gen(13 + k))
+                torch.cuda.synchronize()
+                step_ms = 1e3 * (time.perf_counter() - t0) / reps
+                rec_ = {"card": smi, "dtype": dtype, "scenes": S, "step_ms": step_ms,
+                        "scenes_per_s": S / (step_ms / 1e3), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                        "launches_per_step": per_step}
+                if dtype == "float32":
+                    rec_["profile"] = profile_step(lambda: tt.train_step(batch, gen(19)), step_ms)
+                    timed_calls = [c for c in rec.record(lambda: tt.train_step(batch, gen(20)))
+                                   if c[0].startswith("ball_query_group")]
+                    torch.cuda.synchronize()
+                timing.append(rec_)
+                emit({"phase": "timing_train", **rec_})
+                break
+            except torch.cuda.OutOfMemoryError:
+                oom = {"card": smi, "dtype": dtype, "scenes": S, "oom": True,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+                timing.append(oom)
+                emit({"phase": "timing_train", **oom})
+            finally:
+                tt = batch = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        else:
+            fail(f"no train step fits in {dtype} at S = 8, 4 or 2")
+    per_call = []
+    for name, a, _kw, g in timed_calls:
+        for row, (kern, plain, bnd, shape) in group_jobs(name, a, g).items():
+            k_ms = cuda_ms(kern, 3)
+            p_ms = cuda_ms(plain, 1)
+            b_ms, b_by, info = as_bound(*bnd())
+            for d, v in ((stats["ms"], k_ms), (stats["plain_ms"], p_ms), (stats["bound_ms"], b_ms)):
+                d[row] = d.get(row, 0.0) + v
+            stats["bound_t"][row][0 if b_by == "bytes" else 1] += b_ms
+            per_call.append({"row": row, "card": smi, "shape": str(shape), "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, **info})
+            emit({"phase": "timing_train_kernel", **per_call[-1]})
+    results["timing_train"] = {"steps": timing, "per_call": per_call}
 
 
 def main(argv=None) -> int:
@@ -281,10 +588,11 @@ def main(argv=None) -> int:
 
     errs: dict[str, float] = {}
     b8, p8 = prepared(SceneBatch.stack(samples[:8]))
-    calls = rec.record(lambda: model_bf16(b8, p8))
+    with torch.no_grad():
+        calls = rec.record(lambda: model_bf16(b8, p8))
     torch.cuda.synchronize()
     checks = []
-    for name, cargs, ckw in calls:
+    for name, cargs, ckw, _g in calls:
         dtypes = [None] if name.startswith("furthest") else [torch.bfloat16, torch.float32]
         for dt in dtypes:
             a, k = cut(cargs, ckw, 64, dt)
@@ -329,9 +637,10 @@ def main(argv=None) -> int:
     pack1 = SlotPack.build(b1, bucket=8, paired=True)
     m_gpu = SGPN(device="cuda", seed=args.seed + 1)
     m_cpu = SGPN(device="cpu", seed=args.seed + 1)
-    out_gpu = m_gpu(b1.to("cuda"), pack1.to("cuda"))
-    t0 = time.perf_counter()
-    out_cpu = m_cpu(b1.to("cpu"), pack1.to("cpu"))
+    with torch.no_grad():
+        out_gpu = m_gpu(b1.to("cuda"), pack1.to("cuda"))
+        t0 = time.perf_counter()
+        out_cpu = m_cpu(b1.to("cpu"), pack1.to("cpu"))
     cpu_s = time.perf_counter() - t0
     em, om = torch.from_numpy(b1.edge_mask), torch.from_numpy(b1.obj_mask)
     d_rel = float((out_gpu.rel_logprobs.cpu()[em] - out_cpu.rel_logprobs[em]).abs().max())
@@ -346,6 +655,7 @@ def main(argv=None) -> int:
 
     S = args.scenes
     bS, pS = prepared(SceneBatch.stack(samples[:S]))
+    torch.set_grad_enabled(False)  # eval: no autograd graph
     model_bf16(bS, pS)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -370,8 +680,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     per_call = []
     kern_ms, plain_ms, bound_ms = {}, {}, {}
-    bound_t = {r[0]: [0.0, 0.0] for r in ROWS}  # bytes time, operations time
-    for name, cargs, ckw in calls:
+    bound_t = {r[0]: [0.0, 0.0] for r in ROWS + TRAIN_ROWS}  # bytes time, operations time
+    for name, cargs, ckw, _g in calls:
         row = row_of(name, ckw)
         k_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=False), 5)
         p_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=True), 1)
@@ -384,17 +694,25 @@ def main(argv=None) -> int:
                          "bound_ms": b_ms, "bound_by": b_by, **info})
         emit({"phase": "timing_kernel", **per_call[-1]})
     results["timing"] = {"e2e": e2e, "per_call": per_call}
-    unmeasured = [r[0] for r in ROWS if r[0] not in errs or r[0] not in kern_ms]
+    torch.set_grad_enabled(True)
+    del calls, bS, pS, out, model_bf16, m_gpu, m_cpu, out_gpu, out_cpu
+    torch.cuda.empty_cache()
+
+    stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_t": bound_t}
+    train_phases(args, rec, smi, results, stats)
+    rows = ROWS + TRAIN_ROWS
+    unmeasured = [r[0] for r in rows if r[0] not in errs or r[0] not in kern_ms]
     if unmeasured:
         fail(f"kernels with no check or no timing in this run: {unmeasured}")
 
     results["seconds"] = time.perf_counter() - t_start
     (out_dir / "results.json").write_text(json.dumps(results, indent=1))
     kernels = []
-    for row, counter, src, replaces in ROWS:
+    for row, counter, src, replaces in rows:
         kernels.append({
             "name": row, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_launches[counter], "max_abs_err": errs[row],
+            "launches": stats["launches"][counter], "max_abs_err": errs[row],
             "ms": kern_ms[row], "plain_ms": plain_ms[row], "bound_ms": bound_ms[row],
             "bound_by": "bytes" if bound_t[row][0] >= bound_t[row][1] else "operations",
             "library_ms": None,

@@ -6,8 +6,7 @@ the relation log-probs, drop 'none', map slots to object names. A
 pair-shared batch is packed with a pair plan, so the relation encoder runs
 once per unordered pair (``Trainer.eval_step``).
 
-Command line (random seeded weights — the port has no checkpoint format
-yet)::
+Command line (random seeded weights)::
 
     python -m or4d_tpu_torch.infer --synthetic --scenes 8 --output rels.json [--device cpu]
 
@@ -21,13 +20,17 @@ import json
 from collections.abc import Iterable
 from pathlib import Path
 
+import torch
+
 from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack, is_pair_shared
 from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB, Vocab
 from or4d_tpu_torch.models.sgpn import SGPN
 
 
+@torch.no_grad()
 def predict_relations(model: SGPN, batches: Iterable[SceneBatch], vocab: Vocab = DEFAULT_VOCAB) -> dict[str, list]:
-    """{scan_id: [(subject, relation, object), ...]} over every batch."""
+    """{scan_id: [(subject, relation, object), ...]} over every batch (eval,
+    no autograd graph)."""
     dev = model.device
     none_idx = vocab.none_index
     scan_relations: dict[str, list] = {}

@@ -1,9 +1,12 @@
-"""Classifier heads (port of ``or4d_tpu/models/heads.py``, eval semantics).
+"""Classifier heads (port of ``or4d_tpu/models/heads.py``).
 
 Reference ``network_PointNet.py``: PointNetCls (:188-224) 256 -> 512 ->
-relu -> 256 -> dropout -> relu -> num_classes -> log_softmax;
+relu -> 256 -> dropout(0.3) -> relu -> num_classes -> log_softmax;
 PointNetRelCls (:227-271) the same trunk with the 12-d subject/object type
-one-hots late-fused before the last layer. Dropout is the identity in eval.
+one-hots late-fused before the last layer. Dropout is the identity in eval;
+in train it keeps a unit with probability 0.7 and scales it by 1/0.7 (flax
+``nn.Dropout``). The keep-mask is drawn by :func:`draw_keep` from a
+``torch.Generator``, or handed in, so two runs can share it.
 Xavier-normal init, as the reference.
 """
 
@@ -15,8 +18,24 @@ from torch import nn
 from or4d_tpu_torch.models.layers import Dense
 
 
+DROPOUT = 0.3
+
+
 def _xavier(i, o, device, generator):
     return Dense(i, o, device=device, generator=generator, init="xavier")
+
+
+def draw_keep(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """A dropout keep-mask (bool, True with probability 0.7), drawn on the
+    CPU so a run on the card and one on the CPU draw the same bits."""
+    return (torch.rand(shape, generator=generator) < 1.0 - DROPOUT).to(device)
+
+
+def _trunk(head, x, train: bool, keep):
+    x = head.fc2(torch.relu(head.fc1(x)))
+    if train:
+        x = torch.where(keep, x / (1.0 - DROPOUT), torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.relu(x)
 
 
 class ObjectClsHead(nn.Module):
@@ -26,9 +45,9 @@ class ObjectClsHead(nn.Module):
         self.fc2 = _xavier(512, 256, device, generator)
         self.fc3 = _xavier(256, num_classes, device, generator)
 
-    def forward(self, x):
-        x = torch.relu(self.fc2(torch.relu(self.fc1(x))))
-        return torch.log_softmax(self.fc3(x), dim=-1)
+    def forward(self, x, train: bool = False, keep: torch.Tensor | None = None):
+        """``keep``: the train-mode dropout mask, shaped like fc2's output."""
+        return torch.log_softmax(self.fc3(_trunk(self, x, train, keep)), dim=-1)
 
 
 class RelationClsHead(nn.Module):
@@ -38,7 +57,7 @@ class RelationClsHead(nn.Module):
         self.fc2 = _xavier(512, 256, device, generator)
         self.fc3 = _xavier(256 + onehot_features, num_relations, device, generator)
 
-    def forward(self, x, relation_objects_one_hot):
-        x = torch.relu(self.fc2(torch.relu(self.fc1(x))))
+    def forward(self, x, relation_objects_one_hot, train: bool = False, keep: torch.Tensor | None = None):
+        x = _trunk(self, x, train, keep)
         x = torch.cat([x, relation_objects_one_hot.to(x.dtype)], dim=-1)
         return torch.log_softmax(self.fc3(x), dim=-1)

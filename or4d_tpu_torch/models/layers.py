@@ -1,10 +1,13 @@
 """Shared building blocks: Dense, masked batch norm, MLP stacks (port of
-``or4d_tpu/models/layers.py``, eval semantics).
+``or4d_tpu/models/layers.py``).
 
 Norms take a validity mask and compute masked moments, so padded slots never
-enter the statistics. Eval only: a BN that tracks running statistics
-normalizes with them; TripletGCN's BN (``track_running_stats=False``) always
-uses the masked batch statistics, in eval too.
+enter the statistics. A BN that tracks running statistics normalizes with
+them in eval; in train it normalizes with the masked biased batch moments
+and updates the running statistics in place, torch style:
+``running = 0.9 * running + 0.1 * batch`` with the unbiased variance.
+TripletGCN's BN (``track_running_stats=False``) always uses the masked batch
+statistics.
 
 Parameter names follow the JAX package's tree (``dense_i``, ``bn_i``) so the
 converter (:mod:`or4d_tpu_torch.convert`) maps one onto the other; a Dense
@@ -48,8 +51,57 @@ class Dense(nn.Module):
         return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
 
 
+class _MaskedBatchNormTrain(torch.autograd.Function):
+    """Train-mode BN (+ optional ReLU) over every non-channel axis of x
+    (B, ..., C) with a per-row mask (B,) or None, saving only its input: the
+    backward recomputes the normalized values, so a (B, M, ns, C) grouped
+    tensor is held once instead of once per elementwise step.
+
+    Returns (y in x's dtype, batch mean, biased var, count). Arithmetic as
+    the JAX package: y = ((x - mean) * rsqrt(var + eps)) * weight + bias in
+    f32, then ReLU, then x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, eps, relu):
+        B, C = x.shape[0], x.shape[-1]
+        xf = x.float().reshape(B, -1, C)
+        mb = torch.ones(B, device=x.device) if mask is None else mask.float().reshape(B)
+        count = torch.clamp(mb.sum() * xf.shape[1], min=1.0)
+        mean = (mb @ xf.sum(1)) / count
+        y = xf - mean
+        var = (mb @ (y * y).sum(1)) / count
+        rstd = torch.rsqrt(var + eps)
+        y.mul_(rstd).mul_(weight).add_(bias)
+        if relu:
+            y.relu_()
+        ctx.save_for_backward(x, mb, weight, bias, mean, rstd, count)
+        ctx.relu = relu
+        ctx.mark_non_differentiable(mean, var, count)
+        return y.to(x.dtype).reshape(x.shape), mean, var, count
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar, _gcount):
+        x, mb, weight, bias, mean, rstd, count = ctx.saved_tensors
+        B, C = x.shape[0], x.shape[-1]
+        xhat = (x.float().reshape(B, -1, C) - mean).mul_(rstd)
+        g = gy.float().reshape(B, -1, C)
+        if ctx.relu:
+            g = g * (xhat * weight + bias > 0)
+        dw = (g * xhat).sum((0, 1))
+        db = g.sum((0, 1))
+        gx = g * weight
+        # mean and var see the valid rows only; every row sees them
+        G = gx.sum((0, 1))
+        H = (gx * xhat).sum((0, 1))
+        dx = gx.sub_(mb[:, None, None] * (xhat.mul_(H).add_(G)) / count).mul_(rstd)
+        return dx.to(x.dtype).reshape(x.shape), None, dw, db, None, None
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over all non-channel axes with row validity masking."""
+    """BatchNorm over all non-channel axes with row validity masking;
+    ``relu=True`` applies a ReLU to the result."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5, track_running_stats: bool = True, device=None):
         super().__init__()
@@ -61,7 +113,18 @@ class MaskedBatchNorm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(features, device=device))
             self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, train: bool = False,
+                relu: bool = False) -> torch.Tensor:
+        """``mask``: per leading row (B,) in train mode with running
+        statistics; broadcastable to ``x.shape[:-1]`` otherwise."""
+        if self.track_running_stats and train:
+            y, mean, var, count = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps, relu)
+            with torch.no_grad():
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            return y
         if self.track_running_stats:
             mean, var = self.running_mean, self.running_var
         else:  # masked biased moments over every non-channel axis
@@ -72,7 +135,8 @@ class MaskedBatchNorm(nn.Module):
             mean = (xf * m).sum(0) / count
             var = (((xf - mean) ** 2) * m).sum(0) / count
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        y = (y * self.weight + self.bias).to(x.dtype)
+        return torch.relu(y) if relu else y
 
 
 class SharedMLP(nn.Module):
@@ -87,9 +151,9 @@ class SharedMLP(nn.Module):
             self.add_module(f"dense_{i}", Dense(widths[i], ch, bias=False, dtype=dtype, device=device, generator=generator))
             self.add_module(f"bn_{i}", MaskedBatchNorm(ch, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, train: bool = False) -> torch.Tensor:
         for i in range(self.depth):
-            x = torch.relu(getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x)))
+            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), mask, train=train, relu=True)
         return x
 
 

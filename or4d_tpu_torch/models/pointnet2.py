@@ -1,4 +1,4 @@
-"""PointNet++ MSG feature encoder, eval forward (port of
+"""PointNet++ MSG feature encoder, eval and train forward (port of
 ``or4d_tpu/models/pointnet2.py``).
 
 Architecture (reference pointnet2_msg_cls.py:45-78):
@@ -20,6 +20,14 @@ and build the layer-1 rows inside the kernel from the channel-major raw
 (SA2's 512 centroids) use a precomputed layer-1 plane. The relation
 encoder's paired mode runs SA1 once per unordered pair and emits both
 directions.
+
+Training keeps exact masked batch statistics, so each scale's grouped
+layer-1 rows come out of a grouping kernel with a backward
+(:mod:`or4d_tpu_torch.ops.ball_query_group_raw` from the raw plane for
+supports wider than one chunk, whose features are model inputs;
+:mod:`or4d_tpu_torch.ops.ball_query_group` from a layer-1 plane otherwise),
+and ``DelayedSharedMLP.post`` runs BN/ReLU and the second layer on them in
+PyTorch before the max over the slots.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 from torch import nn
 
 from or4d_tpu_torch.models.layers import Dense, MaskedBatchNorm, SharedMLP
+from or4d_tpu_torch.ops.ball_query_group import ball_query_group
+from or4d_tpu_torch.ops.ball_query_group_raw import ball_query_group_raw
 from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
 
@@ -73,6 +83,15 @@ class DelayedSharedMLP(nn.Module):
         x = xyz if features is None else torch.cat([xyz, features.to(xyz.dtype)], dim=-1)
         return self.dense_0(x.to(self.dtype)).contiguous()
 
+    def post(self, grouped: torch.Tensor, Bq: torch.Tensor, mask: torch.Tensor | None = None,
+             train: bool = False) -> torch.Tensor:
+        """BN/ReLU and the remaining layers on grouped layer-1 rows
+        (B, M, ns, C1) minus Bq (B, M, C1); ``mask`` (B,) rows."""
+        h = self.bn_0(grouped - Bq[:, :, None, :], mask, train=train, relu=True)
+        for i in range(1, len(self.channels)):
+            h = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(h), mask, train=train, relu=True)
+        return h
+
     def fused_eval_params(self):
         """(a0, b0, W1, a1, b1): both eval BNs folded to per-channel affines,
         probed through the BN modules with 0 and 1 as the JAX package does
@@ -94,12 +113,13 @@ class DelayedSharedMLP(nn.Module):
 
 
 class SetAbstractionMSG(nn.Module):
-    """Multi-scale grouping set abstraction, eval only.
+    """Multi-scale grouping set abstraction.
 
     ``forward(xyz (B, N, 3), features (B, N, C) or None, features_alt)`` ->
     (new_xyz (B, npoint, 3), features (B, npoint, sum of scale widths)), or
-    with ``features_alt`` (paired) (B, npoint, 2, sum of widths): the
-    directions differ only in the last feature channel.
+    with ``features_alt`` (paired, eval only) (B, npoint, 2, sum of widths):
+    the directions differ only in the last feature channel. ``train=True``
+    takes batch statistics over the rows that ``mask`` (B,) marks valid.
     """
 
     def __init__(self, in_features: int, npoint: int, scales: Sequence[SAScale], dtype=torch.float32,
@@ -111,7 +131,11 @@ class SetAbstractionMSG(nn.Module):
         for si, sc in enumerate(self.scales):
             self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
 
-    def forward(self, xyz, features, features_alt=None):
+    def forward(self, xyz, features, features_alt=None, mask=None, train: bool = False):
+        if train:
+            if features_alt is not None:
+                raise ValueError("paired SA is an eval path")
+            return self._train_forward(xyz.contiguous(), features, mask)
         B, N, _ = xyz.shape
         xyz = xyz.contiguous()
         paired = features_alt is not None
@@ -143,6 +167,32 @@ class SetAbstractionMSG(nn.Module):
             outs = [o.view(B, self.npoint, 2, -1) for o in outs]
         return new_xyz, torch.cat(outs, dim=-1)
 
+    def _train_forward(self, xyz, features, mask):
+        """Per scale: grouped layer-1 rows from a grouping kernel, then
+        ``post`` and the max over the slots. Supports wider than one chunk
+        group from the raw [xyz|features] plane (W0's gradient only; their
+        features are model inputs) with the FPS counts as search bounds."""
+        N = xyz.shape[1]
+        radii = tuple(sc.radius for sc in self.scales)
+        if N > CHUNK:
+            idx, counts = furthest_point_sample_with_counts(xyz, self.npoint, radii)
+            scale_spec = tuple((sc.radius, sc.nsample) for sc in self.scales)
+            needs = [need.int().contiguous() for need, _thr in counts_to_bounds(scale_spec, counts)]
+            parts = [xyz] + ([] if features is None else [features.to(xyz.dtype)])
+            raw = torch.cat(parts, dim=-1).to(self.dtype).transpose(1, 2).contiguous()  # (B, C0, N)
+        else:
+            idx = furthest_point_sample(xyz, self.npoint)
+        new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+        outs = []
+        for si, sc in enumerate(self.scales):
+            m = getattr(self, f"mlp_{si}")
+            if N > CHUNK:
+                g = ball_query_group_raw(xyz, new_xyz, sc.radius, sc.nsample, m.w0_matrix(), raw, needs[si])
+            else:
+                g = ball_query_group(xyz, new_xyz, sc.radius, sc.nsample, m.pre(xyz, features))
+            outs.append(m.post(g, m.bq_term(new_xyz), mask, train=True).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1)
+
 
 class SetAbstractionAll(nn.Module):
     """Global set abstraction (PointnetSAModule with GroupAll)."""
@@ -152,19 +202,22 @@ class SetAbstractionAll(nn.Module):
         self.dtype = dtype
         self.mlp = SharedMLP(in_features, mlp, dtype, device, generator)
 
-    def forward(self, xyz, features):
+    def forward(self, xyz, features, mask=None, train: bool = False):
         x = torch.cat([xyz.to(features.dtype), features], dim=-1)
-        return self.mlp(x.to(self.dtype)).amax(dim=1)
+        return self.mlp(x.to(self.dtype), mask, train=train).amax(dim=1)
 
 
 class PointNet2MSGEncoder(nn.Module):
     """The reference PointNetfeat2: MSG backbone as a global feature
     extractor. ``forward(pc (B, P, input_dim))`` -> (B, out_size).
 
-    ``paired=True``: ``pc`` is (B, P, 8) — [xyz, rgb, mask_fwd, mask_rev]
-    pair-shared relation crops, one row per unordered pair. Returns
-    (2B, out_size) interleaved [pair0-fwd, pair0-rev, pair1-fwd, ...]; SA1
-    runs once per pair, SA2/SA3 per direction.
+    ``paired=True`` (eval): ``pc`` is (B, P, 8) — [xyz, rgb, mask_fwd,
+    mask_rev] pair-shared relation crops, one row per unordered pair.
+    Returns (2B, out_size) interleaved [pair0-fwd, pair0-rev, pair1-fwd,
+    ...]; SA1 runs once per pair, SA2/SA3 per direction.
+
+    ``train=True``: batch statistics over the rows ``mask`` (B,) marks
+    valid, running statistics updated.
     """
 
     def __init__(self, input_dim: int = 6, out_size: int = 256, sa_npoints=(512, 128),
@@ -183,8 +236,16 @@ class PointNet2MSGEncoder(nn.Module):
         )
         self.sa3 = SetAbstractionAll(3 + 256, (256, out_size), dtype, device, generator)
 
-    def forward(self, pc: torch.Tensor, paired: bool = False) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor, paired: bool = False, mask: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
         xyz = pc[..., 0:3].float().contiguous()  # geometry stays f32
+        if train:
+            if paired:
+                raise ValueError("the paired encoder is an eval path")
+            features = pc[..., 3:] if pc.shape[-1] > 3 else None
+            xyz, feats = self.sa1(xyz, features, mask=mask, train=True)
+            xyz, feats = self.sa2(xyz, feats, mask=mask, train=True)
+            return self.sa3(xyz, feats, mask, train=True)
         if paired:
             feats_fwd = pc[..., 3:7]
             feats_rev = torch.cat([pc[..., 3:6], pc[..., 7:8]], dim=-1)

@@ -1,4 +1,4 @@
-"""SGPN — the scene-graph prediction model, eval forward (port of
+"""SGPN — the scene-graph prediction model and its loss (port of
 ``or4d_tpu/models/sgpn.py``).
 
 Reference ``scene_graph_prediction_model.py:30-109``: PointNet++ MSG object
@@ -10,7 +10,12 @@ GCN edge features with subject/object one-hot late fusion.
 The model consumes a whole :class:`SceneBatch` (scenes stacked, objects and
 edges padded). A :class:`SlotPack` runs the encoders over the valid rows
 only and scatters the features back; a paired pack (pair-shared crops) runs
-the relation encoder once per unordered pair and scatters both directions.
+the relation encoder once per unordered pair and scatters both directions
+(eval only: training encodes every directed edge).
+
+``forward`` builds no autograd graph only under ``torch.no_grad()``, which
+the eval entry points (``infer.predict_relations``, ``Trainer.eval_step``)
+take.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from torch import nn
 from or4d_tpu_torch.config import ExperimentConfig
 from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
 from or4d_tpu_torch.device import resolve_device
-from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead
+from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead, draw_keep
 from or4d_tpu_torch.models.pointnet2 import PointNet2MSGEncoder
 from or4d_tpu_torch.models.triplet_gcn import TripletGCN
 
@@ -61,8 +66,6 @@ class SGPN(nn.Module):
         self.gcn = TripletGCN(gcn_layers, point_feature_size, edge_feature_size, gcn_hidden, device, generator)
         self.obj_predictor = ObjectClsHead(point_feature_size, num_classes, device, generator)
         self.rel_predictor = RelationClsHead(edge_feature_size, num_relations, device=device, generator=generator)
-        self.requires_grad_(False)  # eval only: the train path is not ported yet
-        self.eval()
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig, num_classes: int, num_relations: int, **kw) -> "SGPN":
@@ -86,24 +89,33 @@ class SGPN(nn.Module):
     def device(self) -> torch.device:
         return self.gcn.layer_0.nn1.dense_0.weight.device
 
-    @torch.no_grad()
-    def forward(self, batch: SceneBatch, pack: SlotPack | None = None) -> SGPNOutputs:
-        """``batch`` and ``pack`` hold tensors on the model's device."""
+    def forward(self, batch: SceneBatch, pack: SlotPack | None = None, train: bool = False,
+                generator: torch.Generator | None = None, dropout_keep: dict | None = None) -> SGPNOutputs:
+        """``batch`` and ``pack`` hold tensors on the model's device.
+
+        ``train=True``: batch statistics over the valid rows (pack validity,
+        or the batch masks without a pack), running statistics updated, and
+        head dropout with keep-masks ``dropout_keep`` {"obj": (S, O, 256),
+        "rel": (S, E, 256)} or, where absent, drawn from ``generator``."""
         S, O, Po, Co = batch.obj_points.shape
         _, E, Pr, Cr = batch.rel_points.shape
         obj_flat = batch.obj_points.reshape(S * O, Po, Co).float()
         rel_flat = batch.rel_points.reshape(S * E, Pr, Cr).float()
-        paired = pack is not None and pack.paired
+        obj_rows = batch.obj_mask.reshape(S * O).float()
+        edge_rows = batch.edge_mask.reshape(S * E).float()
+        paired = not train and pack is not None and pack.paired
         if pack is not None:
             obj_flat = obj_flat[pack.obj_idx]
+            obj_rows = pack.obj_valid.float()
             rel_flat = rel_flat[pack.pair_idx if paired else pack.edge_idx]
+            edge_rows = pack.pair_valid.float() if paired else pack.edge_valid.float()
         if paired:
             # forward crops -> both mask channels (1 <-> 2 swapped for the reverse)
             m = rel_flat[..., 6:7]
             rel_flat = torch.cat([rel_flat[..., :6], m, torch.where(m > 0, 3.0 - m, torch.zeros_like(m))], dim=-1)
 
-        obj_feat = self.obj_encoder(obj_flat)
-        rel_feat = self.rel_encoder(rel_flat, paired=paired)
+        obj_feat = self.obj_encoder(obj_flat, mask=obj_rows, train=train)
+        rel_feat = self.rel_encoder(rel_flat, paired=paired, mask=edge_rows, train=train)
         D, De = self.point_feature_size, self.edge_feature_size
         if pack is not None:
             ov = pack.obj_valid[:, None].to(obj_feat.dtype)
@@ -120,11 +132,37 @@ class SGPN(nn.Module):
         rel_feat = rel_feat.reshape(S, E, De)
 
         gcn_obj, gcn_rel = self.gcn(obj_feat, rel_feat, batch.edge_index, batch.obj_mask, batch.edge_mask)
-        obj_logprobs = self.obj_predictor(gcn_obj if self.obj_pred_from_gcn else obj_feat)
-        rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot)
+        keep = dict(dropout_keep or {})
+        if train:
+            for k, n, head in (("obj", O, self.obj_predictor), ("rel", E, self.rel_predictor)):
+                if k not in keep:
+                    keep[k] = draw_keep((S, n, head.fc2.weight.shape[0]), generator, obj_feat.device)
+        obj_logprobs = self.obj_predictor(gcn_obj if self.obj_pred_from_gcn else obj_feat, train, keep.get("obj"))
+        rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot, train, keep.get("rel"))
         return SGPNOutputs(
             obj_logprobs=obj_logprobs.float(),
             rel_logprobs=rel_logprobs.float(),
             obj_features=obj_feat,
             rel_features=rel_feat,
         )
+
+
+def weighted_nll(logprobs: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """torch ``F.nll_loss(weight=w)`` with validity masking: weighted mean of
+    -logprob[target] with weights w[target] * mask (reference training_step
+    :134-145)."""
+    targets = targets.long()
+    picked = torch.gather(logprobs, -1, targets[..., None])[..., 0]
+    w = class_weights[targets] * mask.to(logprobs.dtype)
+    return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-12)
+
+
+def sgpn_loss(outputs: SGPNOutputs, batch: SceneBatch, weights_obj: torch.Tensor, weights_rel: torch.Tensor,
+              lambda_o: float = 1e-6):
+    """(loss, {"loss_obj", "loss_rel", "loss"}): loss = lambda_o * obj NLL +
+    rel NLL (reference :139-141). MULTI_REL's weighted BCE is not ported."""
+    loss_obj = weighted_nll(outputs.obj_logprobs, batch.gt_class, weights_obj, batch.obj_mask)
+    loss_rel = weighted_nll(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
+    loss = lambda_o * loss_obj + loss_rel
+    return loss, {"loss_obj": loss_obj, "loss_rel": loss_rel, "loss": loss}

@@ -1,14 +1,16 @@
-"""Point-cloud ops of the port: FPS and the fused eval SA stage (each a CUDA
-kernel beside its plain PyTorch version) and the plain index ball query.
+"""Point-cloud ops of the port: FPS, the fused eval SA stage and the train
+grouping with its backward (each a CUDA kernel beside its plain PyTorch
+version), and the plain index ball query.
 
 Every kernel wrapper counts its launches in its module's ``LAUNCHES`` dict;
 :func:`launch_counts` and :func:`reset_launch_counts` read and zero them all,
 so a run can show that a path went through the kernels.
 """
 
-from or4d_tpu_torch.ops import fps, sa_group_mlp
+from or4d_tpu_torch.ops import ball_query_group, ball_query_group_raw, fps, sa_group_mlp
 
-_COUNTERS = {"fps": fps.LAUNCHES, "sa_group_mlp": sa_group_mlp.LAUNCHES}
+_COUNTERS = {"fps": fps.LAUNCHES, "sa_group_mlp": sa_group_mlp.LAUNCHES,
+             "group": ball_query_group.LAUNCHES, "group_raw": ball_query_group_raw.LAUNCHES}
 
 
 def launch_counts() -> dict[str, int]:

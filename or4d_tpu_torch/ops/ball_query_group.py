@@ -1,0 +1,191 @@
+"""Train-path grouping on a layer-1 plane: the CUDA kernels of
+``csrc/ball_query_group.cu`` (plane mode) and their plain PyTorch versions.
+
+Replaces ``ball_query_group_pallas`` (or4d_tpu/ops/pallas_ball_query.py:295)
+and its custom VJP (:408-422), one (radius, nsample) scale per call. What
+bounds the kernels on the H100 and what their design does about it is in
+the header of ``csrc/ball_query_group.cu``.
+
+Forward: for each query, the first ``nsample`` support points within
+``radius`` in scan order (first-hit fill), their rows of A (B, N, C) copied
+as they are into (B, M, nsample, C); a query with no hit gets zero rows.
+Backward: the cotangent of every slot is added, in f32, to the A row it came
+from (filled slots to the first hit; nothing from a query with no hit),
+then rounded to the cotangent's dtype. Geometry gets no gradient.
+
+The forward saves the hit indices (B, M, nsample) int32, filled, with -1 in
+every slot of a query with no hit; the backward is a scatter by them.
+
+The wrappers take the plain versions for CPU tensors only; a CUDA tensor
+always launches a kernel, and a failed launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+
+# kernel launches: "fwd" (search + grouped rows) and "bwd" (dA)
+LAUNCHES = {"fwd": 0, "bwd": 0}
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_NS = 127
+_MAX_C, _MAX_M = 256, 1024
+
+
+def r2_of(radius: float) -> float:
+    """r*r in Python double, rounded to f32: the reference's value."""
+    return float(np.float32(radius * radius))
+
+
+def group_indices_plain(xyz, new_xyz, radius: float, nsample: int) -> torch.Tensor:
+    """(B, M, nsample) int32 hit indices in scan order, filled with the
+    first hit; -1 in every slot of a query with no hit."""
+    idx, total = ball_query_with_counts(radius, nsample, xyz, new_xyz)
+    return torch.where((total > 0)[..., None], idx, -1).int()
+
+
+def gather_rows(A: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """A (B, N, C) rows at idx (B, M, ns) -> (B, M, ns, C); zero rows at -1."""
+    rows = torch.arange(A.shape[0], device=A.device)[:, None, None]
+    idx = idx.long()
+    out = A[rows, idx.clamp(min=0)]
+    return torch.where((idx >= 0)[..., None], out, torch.zeros((), dtype=A.dtype, device=A.device))
+
+
+def scatter_rows(idx: torch.Tensor, g: torch.Tensor, N: int) -> torch.Tensor:
+    """The transpose of :func:`gather_rows`: g (B, M, ns, C) summed in f32,
+    in flattened slot order, into (B, N, C) f32."""
+    B, M, ns, C = g.shape
+    idx = idx.long().reshape(B, M * ns)
+    valid = idx >= 0
+    flat = (torch.arange(B, device=g.device)[:, None] * N + idx.clamp(min=0))[valid]
+    dA = torch.zeros(B * N, C, dtype=torch.float32, device=g.device)
+    dA.index_add_(0, flat, g.reshape(B, M * ns, C)[valid].float())
+    return dA.view(B, N, C)
+
+
+def _check_geometry(xyz, new_xyz, nsample):
+    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name} must be a (B, *, 3) float32 tensor, got {getattr(t, 'shape', t)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if new_xyz.shape[0] != xyz.shape[0] or new_xyz.device != xyz.device:
+        raise ValueError("xyz and new_xyz disagree on B or device")
+    if not 1 <= nsample <= MAX_NS:
+        raise ValueError(f"nsample must be in [1, {MAX_NS}], got {nsample}")
+
+
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _device_type(xyz: torch.Tensor, name: str) -> str:
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {xyz.device}")
+    return xyz.device.type
+
+
+def group_fwd_plain(xyz, new_xyz, radius: float, nsample: int, A):
+    """The plain forward: (out (B, M, nsample, C) in A's dtype, idx)."""
+    idx = group_indices_plain(xyz, new_xyz, radius, nsample)
+    return gather_rows(A, idx), idx
+
+
+def group_bwd_plain(idx, g, N: int) -> torch.Tensor:
+    """The plain backward: dA (B, N, C) in g's dtype."""
+    return scatter_rows(idx, g, N).to(g.dtype)
+
+
+def group_fwd(xyz, new_xyz, radius: float, nsample: int, A):
+    """(out, idx): the kernel for CUDA tensors, the plain version on the CPU."""
+    _check_geometry(xyz, new_xyz, nsample)
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    if A.dtype not in DTYPES or A.dim() != 3:
+        raise ValueError(f"A must be (B, N, C) float32 or bfloat16, got {tuple(A.shape)} {A.dtype}")
+    C = A.shape[-1]
+    _check(A, "A", (B, N, C), A.dtype, xyz.device)
+    if _device_type(xyz, "ball_query_group") == "cpu":
+        return group_fwd_plain(xyz, new_xyz, radius, nsample, A)
+    if C > _MAX_C:
+        raise ValueError(f"ball_query_group kernel takes C <= {_MAX_C}, got {C}")
+    from or4d_tpu_torch.ops._build import library
+
+    fn = library("ball_query_group").or4d_group_fwd
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [I, P, P, I, I, I, F, I, P, P, P, P, I, I, P, P, P]
+    fn.restype = I
+    out = torch.empty(B, M, nsample, C, dtype=A.dtype, device=A.device)
+    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=A.device)
+    if B > 0 and M > 0:
+        with torch.cuda.device(A.device):
+            err = fn(DTYPES[A.dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample, None,
+                     A.data_ptr(), None, None, 0, C, out.data_ptr(), idx.data_ptr(),
+                     torch.cuda.current_stream(A.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ball_query_group forward kernel launch failed: CUDA error {err}")
+        LAUNCHES["fwd"] += 1
+    return out, idx
+
+
+def group_bwd(idx, g, N: int) -> torch.Tensor:
+    """dA (B, N, C) in g's dtype: the kernel for CUDA tensors, the plain
+    version on the CPU."""
+    if g.dtype not in DTYPES or g.dim() != 4:
+        raise ValueError(f"g must be (B, M, ns, C) float32 or bfloat16, got {tuple(g.shape)} {g.dtype}")
+    B, M, ns, C = g.shape
+    _check(g, "g", (B, M, ns, C), g.dtype, g.device)
+    _check(idx, "idx", (B, M, ns), torch.int32, g.device)
+    if _device_type(g, "ball_query_group backward") == "cpu":
+        return group_bwd_plain(idx, g, N)
+    if C > _MAX_C or M > _MAX_M or ns > MAX_NS:
+        raise ValueError(f"ball_query_group backward kernel takes C <= {_MAX_C}, M <= {_MAX_M}, ns <= {MAX_NS}")
+    from or4d_tpu_torch.ops._build import library
+
+    fn = library("ball_query_group").or4d_group_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, P, P, I, I, I, I, I, P, P]
+    fn.restype = I
+    dA = torch.empty(B, N, C, dtype=g.dtype, device=g.device)
+    if B > 0 and M > 0 and N > 0:
+        with torch.cuda.device(g.device):
+            err = fn(DTYPES[g.dtype], idx.data_ptr(), g.data_ptr(), B, N, M, ns, C, dA.data_ptr(),
+                     torch.cuda.current_stream(g.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ball_query_group backward kernel launch failed: CUDA error {err}")
+        LAUNCHES["bwd"] += 1
+    elif N > 0:
+        dA.zero_()
+    return dA
+
+
+class _GroupFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, xyz, new_xyz, radius, nsample):
+        out, idx = group_fwd(xyz, new_xyz, radius, nsample, A)
+        ctx.save_for_backward(idx)
+        ctx.N = A.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return group_bwd(idx, g.contiguous(), ctx.N), None, None, None, None
+
+
+def ball_query_group(xyz, new_xyz, radius: float, nsample: int, A) -> torch.Tensor:
+    """Grouped layer-1 rows (B, M, nsample, C) in A's dtype, differentiable
+    in ``A`` (B, N, C). ``xyz`` (B, N, 3) and ``new_xyz`` (B, M, 3) are
+    float32 geometry."""
+    return _GroupFunction.apply(A, xyz, new_xyz, float(radius), int(nsample))

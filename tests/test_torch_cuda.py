@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
 from or4d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_with_counts
-from or4d_tpu_torch.ops.sa_group_mlp import sa_group_mlp
+from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -105,3 +106,98 @@ def test_kernel_wrappers_raise_outside_limits(card):
     args, kw = _sa_inputs(7, 1, 600, 32, 6, 160, 64, False, torch.float32)
     with pytest.raises(ValueError):
         sa_group_mlp(*[_on(a, card) for a in args], **{k: _on(v, card) for k, v in kw.items()})
+
+
+# train-path grouping (TPU rows 5 and 6): forwards exact; backward sums in
+# another order than the plain version (dA: 1e-5 of max|dA| in float32;
+# dW0: 1e-4 of max|dW0|), one bf16 ulp in bfloat16
+BWD_TOL = {"dA": 1e-5, "dW0": 1e-4}
+
+
+def _close_bwd(got, want, kind):
+    rtol = 2.0 ** -7 if want.dtype == torch.bfloat16 else 0.0
+    got, want = got.float().cpu(), want.float().cpu()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=BWD_TOL[kind] * float(want.abs().max()))
+
+
+def _group_inputs(seed, B, N, M, C, dtype):
+    g = torch.Generator().manual_seed(seed)
+    xyz = _cloud(seed, B, N)
+    q = xyz[:, torch.randperm(N, generator=g)[:M]].contiguous()
+    q[0, 1] = 40.0  # no hit: zero rows, no gradient
+    return xyz, q, torch.randn(B, N, C, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [32, 64])
+def test_group_kernels_match_plain(card, dtype, ns):
+    xyz, q, A = _group_inputs(ns, 6, 512, 128, 128, dtype)
+    want, widx = bqg.group_fwd(xyz, q, 0.3, ns, A)
+    reset_launch_counts()
+    got, idx = bqg.group_fwd(xyz.to(card), q.to(card), 0.3, ns, A.to(card))
+    torch.testing.assert_close(idx.cpu(), widx, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    g = torch.randn(got.shape).to(dtype)
+    dA = bqg.group_bwd(idx, g.to(card), 512)
+    assert launch_counts()["group.fwd"] == 1 and launch_counts()["group.bwd"] == 1
+    _close_bwd(dA, bqg.group_bwd_plain(idx, g.to(card), 512), "dA")
+    assert not dA.cpu()[0][~torch.isin(torch.arange(512), widx[0][widx[0] >= 0])].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C0", [6, 7])
+def test_group_raw_kernels_match_plain(card, dtype, C0):
+    xyz = _cloud(C0, 3, 1100).to(card)
+    idx, counts = furthest_point_sample_with_counts(xyz, 128, (0.1, 0.2))
+    q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+    bounds = counts_to_bounds(((0.1, 16), (0.2, 32)), counts)
+    gen = torch.Generator().manual_seed(C0)
+    raw = torch.randn(3, C0, 1100, generator=gen).to(dtype).to(card)
+    W0 = (torch.randn(C0, 64, generator=gen) / C0 ** 0.5).to(dtype).to(card)
+    for (r, ns), (need, _thr) in zip(((0.1, 16), (0.2, 32)), bounds):
+        need = need.int().contiguous()
+        reset_launch_counts()
+        got, gidx = bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw, need)
+        want, widx = bqgr.group_raw_fwd_plain(xyz, q, r, ns, W0, raw)
+        torch.testing.assert_close(gidx, widx, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        g = torch.randn(got.shape, generator=gen).to(dtype).to(card)
+        dW0 = bqgr.group_raw_bwd(gidx, g, raw)
+        assert launch_counts()["group_raw.fwd"] == 1 and launch_counts()["group_raw.bwd"] == 1
+        _close_bwd(dW0, bqgr.group_raw_bwd_plain(gidx, g, raw), "dW0")
+
+
+def test_group_functions_match_autograd_through_plain(card):
+    """The autograd Functions' gradients against autograd through the plain
+    gathers (no custom backward), float32 on the card."""
+    xyz, q, A = _group_inputs(3, 4, 400, 96, 64, torch.float32)
+    xyz, q, A = xyz.to(card), q.to(card), A.to(card)
+    g = torch.randn(4, 96, 32, 64, device=card)
+    a1 = A.clone().requires_grad_(True)
+    (bqg.ball_query_group(xyz, q, 0.3, 32, a1) * g).sum().backward()
+    a2 = A.clone().requires_grad_(True)
+    (bqg.gather_rows(a2, bqg.group_indices_plain(xyz, q, 0.3, 32)) * g).sum().backward()
+    _close_bwd(a1.grad, a2.grad, "dA")
+    raw = torch.randn(4, 7, 400, device=card)
+    w1 = torch.randn(7, 64, device=card, requires_grad=True)
+    (bqgr.ball_query_group_raw(xyz, q, 0.3, 32, w1, raw) * g).sum().backward()
+    w2 = w1.detach().clone().requires_grad_(True)
+    A2 = raw.transpose(1, 2) @ w2
+    (bqg.gather_rows(A2, bqg.group_indices_plain(xyz, q, 0.3, 32)) * g).sum().backward()
+    _close_bwd(w1.grad, w2.grad, "dW0")
+
+
+def test_group_wrappers_raise_on_bad_inputs(card):
+    xyz, q, A = _group_inputs(4, 2, 300, 32, 16, torch.float32)
+    xyz, q, A = xyz.to(card), q.to(card), A.to(card)
+    with pytest.raises(ValueError):  # dtype the kernel does not take
+        bqg.group_fwd(xyz, q, 0.3, 8, A.double())
+    with pytest.raises(ValueError):  # non-contiguous plane
+        bqg.group_fwd(xyz, q, 0.3, 8, A.transpose(0, 1).contiguous().transpose(0, 1))
+    raw = torch.randn(2, 6, 300, device=card)
+    with pytest.raises(ValueError):  # non-contiguous raw plane
+        bqgr.group_raw_fwd(xyz, q, 0.3, 8, torch.randn(6, 16, device=card), raw.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):  # C above the raw kernel's limit
+        bqgr.group_raw_fwd(xyz, q, 0.3, 8, torch.randn(6, 160, device=card), raw)
+    with pytest.raises(ValueError):  # idx of the wrong dtype
+        bqg.group_bwd(torch.zeros(2, 32, 8, dtype=torch.int64, device=card), torch.randn(2, 32, 8, 16, device=card), 300)

@@ -1,8 +1,10 @@
 """Rules of the PyTorch port that are not numerics:
 
-* no module of ``or4d_tpu_torch`` and not ``chip_smoke.py`` imports jax,
-  flax or the JAX package;
-* entry points raise without a card unless they are given ``device="cpu"``;
+* no module of ``or4d_tpu_torch`` (the train and ops modules included) and
+  not ``chip_smoke.py`` imports jax, flax, optax or the JAX package;
+* entry points (``infer``, ``train``) raise without a card unless they are
+  given ``device="cpu"``; ``python -m or4d_tpu_torch.train --device cpu``
+  writes a finite history;
 * a kernel build with no compiler raises (no plain-version fallback);
 * the weight converter raises on a missing or an extra key.
 """
@@ -59,7 +61,29 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.main(["--synthetic", "--scenes", "1", "--config", "tiny", "--output", str(out)])
     assert not out.exists()
+    from or4d_tpu_torch.train.__main__ import main as train_main
+
+    hist = tmp_path / "history.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--synthetic", "--config", "tiny", "--scenes", "1", "--steps", "1", "--output", str(hist)])
+    assert not hist.exists()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_cli_on_cpu_writes_a_finite_history(tmp_path):
+    import json
+    import math
+
+    from or4d_tpu_torch.train import checkpoint
+    from or4d_tpu_torch.train.__main__ import main as train_main
+
+    out = tmp_path / "history.json"
+    res = train_main(["--synthetic", "--config", "tiny", "--scenes", "2", "--steps", "2", "--device", "cpu",
+                      "--checkpoint-dir", str(tmp_path / "ck"), "--output", str(out)])
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert [r["step"] for r in res["history"]] == [1, 2]
+    assert all(math.isfinite(r[k]) for r in res["history"] for k in ("loss", "loss_obj", "loss_rel"))
+    assert checkpoint.latest_step(tmp_path / "ck") == 2
 
 
 def test_infer_cli_on_cpu_writes_scan_relations(tmp_path):

@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 import jax
 import jax.numpy as jnp
 
@@ -102,7 +103,8 @@ def test_logprobs_match_jax(jax_run, port_model):
     jbatch, _, rel, obj, _ = jax_run
     batch = SceneBatch(**{f: np.asarray(getattr(jbatch, f)) for f in _FIELDS}, scan_ids=jbatch.scan_ids,
                        take_idxs=jbatch.take_idxs, slot_names=jbatch.slot_names)
-    out = port_model(batch.to("cpu"), SlotPack.build(batch, paired=True).to("cpu"))
+    with torch.no_grad():  # an eval forward, as the eval entry points run it
+        out = port_model(batch.to("cpu"), SlotPack.build(batch, paired=True).to("cpu"))
     em, om = np.asarray(jbatch.edge_mask), np.asarray(jbatch.obj_mask)
     np.testing.assert_allclose(out.rel_logprobs.numpy()[em], rel[em], atol=2e-4, rtol=0)
     np.testing.assert_allclose(out.obj_logprobs.numpy()[om], obj[om], atol=2e-4, rtol=0)
