@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
-NVIDIA GPU: the SGPN eval (serving) path and the SGPN train step at the
-paper's full widths.
+NVIDIA GPU: the SGPN eval path, the SGPN train step and serving mode (cached
+SA1 geometry) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -44,6 +44,25 @@ slice and train phases.
              float32 step's device time by kernel (torch.profiler), and each
              grouping kernel's ms per step on the step's own inputs beside
              its plain version and its bound.
+9. check_serving — the multi-scale ball query (exactly, every scale) and
+             the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
+             plain versions on the card, on the inputs of an S=8 bfloat16
+             serving cache build and forward (unpaired synthetic scenes), cut
+             to 64 clouds.
+10. serving — a ``ServingEvaluator`` on those S=8 scenes in bfloat16 with
+             its cache directory under --out: a finite macro F1, and the FPS,
+             SA plane-mode, ball-query and serving-MLP counters rise; a second
+             evaluator loads the cache files (no ball-query launch) and
+             gives the same F1; the files are then removed. Then float32 at S=1: serving log-probs on the
+             card and on the CPU within 1e-3, and serving against the cold
+             unpaired forward on the card within 1e-4 (bfloat16 at S=8:
+             reported).
+11. timing_serving — the S=64 bfloat16 serving batch: cache build host
+             seconds and bytes (set-up), forward batch ms with the caches
+             resident, scenes/s, peak memory and a torch.profiler breakdown;
+             the ball query's ms on the cache build's inputs and the serving
+             MLP's ms on the forward's, beside their plain versions and
+             bounds.
 
 Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``. Weights are random, from a seed.
@@ -53,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +109,14 @@ TRAIN_ROWS = (
     ("group_fwd", "group.fwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:295"),
     ("group_bwd", "group.bwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:413"),
 )
+# TPU kernel rows 7 (serving_sa1_mlp_pallas) and 8
+# (ball_query_multiscale_pallas), driven by serving mode
+SERVING_ROWS = (
+    ("serving_sa1_mlp", "serving_sa1.mlp", "or4d_tpu_torch/ops/csrc/serving_sa1_mlp.cu",
+     "or4d_tpu/ops/pallas_serving_mlp.py:128"),
+    ("ball_query_multiscale", "ball_query.multiscale", "or4d_tpu_torch/ops/csrc/ball_query_multiscale.cu",
+     "or4d_tpu/ops/pallas_ball_query.py:139"),
+)
 SA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL = {"group_raw_bwd": 1e-4, "group_bwd": 1e-5}  # of the largest |value|
 
@@ -108,24 +136,29 @@ def nvidia_smi_line() -> str:
 
 
 class Recorder:
-    """Wraps the kernel entry points the encoder calls and keeps each call's
-    arguments (tensors on the card) while ``on``, as [name, args, kw, g]:
-    ``g`` is the cotangent of the call's output, caught by a hook in the
-    backward. With ``rows`` the tensors are cut to that many clouds and
-    copied (W0 is a weight and stays whole)."""
+    """Wraps the kernel entry points the encoder and the serving cache build
+    call and keeps each call's arguments (tensors on the card) while ``on``,
+    as [name, args, kw, g]: ``g`` is the cotangent of the call's output,
+    caught by a hook in the backward. With ``rows`` the tensors are cut to
+    that many clouds and copied (W0 is a weight and stays whole)."""
 
     NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp",
-             "ball_query_group", "ball_query_group_raw")
+             "ball_query_group", "ball_query_group_raw", "serving_sa1_mlp")
+    SERVING_NAMES = ("ball_query_multiscale",)
 
     def __init__(self):
+        from or4d_tpu_torch import serving
         from or4d_tpu_torch.models import pointnet2
 
         self.orig = {n: getattr(pointnet2, n) for n in self.NAMES}
+        self.orig.update({n: getattr(serving, n) for n in self.SERVING_NAMES})
         self.calls: list[list] = []
         self.on = False
         self.rows = None
         for n in self.NAMES:
             setattr(pointnet2, n, self._wrap(n))
+        for n in self.SERVING_NAMES:
+            setattr(serving, n, self._wrap(n))
 
     def _keep(self, t, whole=False):
         if not isinstance(t, torch.Tensor):
@@ -542,6 +575,263 @@ def train_phases(args, rec, smi, results, stats) -> None:
     results["timing_train"] = {"steps": timing, "per_call": per_call}
 
 
+def scan_ends(xyz, new_xyz, radius, ns):
+    """(B, M) points each query's scan-order search for ``ns`` hits reads
+    on these inputs: through its ns-th hit, or all N points when it has
+    fewer."""
+    from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    ends = []
+    step = max(1, (1 << 26) // (M * N))
+    for s in range(0, B, step):
+        idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
+        last = idx[..., ns - 1] + 1 if ns <= N else torch.full_like(total, N)
+        ends.append(torch.where(total >= ns, last, torch.full_like(last, N)))
+    return torch.cat(ends)
+
+
+def serving_bound(name, args) -> tuple[float, str, dict]:
+    """(least ms, "bytes"/"operations", counts) of one serving-path call on
+    these inputs. Ball query: xyz, queries and indices once over the HBM
+    rate against one distance (9 f32 operations, plus a compare per further
+    scale) per point read, a query reading until every scale has its ns
+    hits. Serving MLP: planes (as stored, 8 channels), Bq, weights and
+    output once, against the W0 and W1 products (tensor cores in bfloat16,
+    FP32 pipes in float32) and the f32 affine/ReLU/max work on the FP32
+    pipes."""
+    if name == "ball_query_multiscale":
+        scales, xyz, new_xyz = args
+        B, N, _ = xyz.shape
+        M = new_xyz.shape[1]
+        ends = torch.stack([scan_ends(xyz, new_xyz, r, ns) for r, ns in scales]).amax(0)
+        scanned = int(ends.sum())
+        nbytes = xyz.numel() * 4 + new_xyz.numel() * 4 + B * M * sum(ns for _r, ns in scales) * 4
+        return as_bound(nbytes, scanned * (9 + len(scales) - 1), {"scanned": scanned, "queries": B * M})
+    planes, Bq, W0, _a0, _b0, W1 = args[:6]
+    R, M, ns, _ = planes.shape
+    C0, C1 = W0.shape
+    C2 = W1.shape[1]
+    es = planes.element_size()
+    nbytes = (planes.numel() + Bq.numel() + W0.numel() + W1.numel() + R * M * C2) * es + 4 * (2 * C1 + 2 * C2)
+    slots = R * M * ns
+    mm = slots * 2 * (C0 * C1 + C1 * C2)
+    f32_ops = slots * (4 * C1 + 3 * C2)
+    t_ops = max(mm / PEAK_BF16, f32_ops / PEAK_F32) if W1.dtype == torch.bfloat16 else (mm + f32_ops) / PEAK_F32
+    info = {"bytes": nbytes, "mm_flops": mm, "f32_ops": f32_ops, "slots": slots}
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
+
+
+def run_serving_call(name, args, plain: bool):
+    from or4d_tpu_torch.ops import ball_query_multiscale as bqm, serving_sa1_mlp as ssm
+
+    if name == "ball_query_multiscale":
+        return (bqm.ball_query_multiscale_plain if plain else bqm.ball_query_multiscale)(*args)
+    return (ssm.serving_sa1_mlp_plain if plain else ssm.serving_sa1_mlp)(*args)
+
+
+def serving_phases(args, rec, smi, results, stats) -> None:
+    """check_serving, serving and timing_serving (see the module
+    docstring). Adds the serving rows' checks, main-path launches and
+    timings to ``stats``."""
+    import dataclasses
+    import gc
+    import math
+
+    from or4d_tpu_torch import serving
+    from or4d_tpu_torch.config import NO_GT, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    # bench.py --serving's scenes: 9 objects, one crop per directed edge
+    S = args.scenes
+    samples = make_scene_samples(max(S, 8), seed=args.seed + 200, n_objects=9, ds=DatasetConfig(),
+                                 points_per_obj=2000)
+    emit({"phase": "serving_data", "scenes": len(samples), "host_seconds": time.perf_counter() - t0})
+    errs = stats["errs"]
+    strip = lambda b: serving._strip_points(b).to("cuda")
+    cfg = dataclasses.replace(NO_GT, tpu=dataclasses.replace(NO_GT.tpu, compute_dtype="bfloat16"))
+    ones = (torch.ones(DEFAULT_VOCAB.num_classes).numpy(), torch.ones(DEFAULT_VOCAB.num_relations).numpy())
+    trainer = Trainer(cfg, DEFAULT_VOCAB, *ones, device="cuda", seed=args.seed)
+    model = trainer.model
+    torch.set_grad_enabled(False)
+
+    # check_serving: both kernels on an S=8 cache build's and forward's inputs
+    b8 = SceneBatch.stack(samples[:8])
+    p8 = SlotPack.build(b8).to("cuda")
+
+    def s8():
+        caches = serving.build_sgpn_sa1_caches(model, b8.to("cuda"), p8)
+        model(strip(b8), p8, sa1_caches=caches)
+
+    calls = [c for c in rec.record(s8) if c[0] in ("ball_query_multiscale", "serving_sa1_mlp")]
+    torch.cuda.synchronize()
+    checks = []
+    for name, cargs, _kw, _g in calls:
+        if name == "ball_query_multiscale":
+            jobs = [(None, (cargs[0], cargs[1][:64].contiguous(), cargs[2][:64].contiguous()))]
+        else:
+            jobs = [(dt, tuple(a[:64].contiguous() if i < 2 else a for i, a in enumerate(cargs)))
+                    for dt in (torch.bfloat16, torch.float32)]
+            jobs = [(dt, tuple(a.to(dt) if i in (0, 1, 2, 5) else a for i, a in enumerate(ja))) for dt, ja in jobs]
+        for dt, ja in jobs:
+            got = run_serving_call(name, ja, plain=False)
+            torch.cuda.synchronize()
+            want = run_serving_call(name, ja, plain=True)
+            if dt is None:
+                d = max(max_abs_diff(g, w) for g, w in zip(got, want))
+                ok = d == 0.0
+                shape = (tuple(ja[1].shape), ja[2].shape[1], ja[0])
+                vals = torch.cat([g.flatten() for g in got]).float()
+            else:
+                d = max_abs_diff(got, want)
+                ok = torch.allclose(got.float(), want.float(), rtol=SA_TOL[dt], atol=SA_TOL[dt])
+                shape = (tuple(ja[0].shape), tuple(ja[5].shape))
+                vals = got.float()
+            checks.append({"row": name, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": bool(ok),
+                           "max_abs_value": float(vals.abs().max())})
+            emit({"phase": "check_serving", **checks[-1]})
+            errs[name] = max(errs.get(name, 0.0), d)
+            if not ok:
+                fail(f"{name} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+    results["check_serving"] = checks
+    del calls, got, want, vals, jobs
+
+    # serving: the evaluator end to end, then from its cache files
+    cache_dir = Path(args.out) / "serving_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)  # this run's own files only
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = serving.ServingEvaluator(trainer, [b8], cache_dir=cache_dir)
+    f1 = ev.evaluate()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    stats["launches"].update({c: launches[c] for _r, c, _s, _p in SERVING_ROWS})
+    missing = [c for c in ("fps.fps", "sa_group_mlp.plane", *(r[1] for r in SERVING_ROWS)) if launches.get(c, 0) == 0]
+    if missing:
+        fail(f"kernels not launched on the serving path: {missing} ({launches})")
+    if not math.isfinite(f1):
+        fail(f"serving macro F1 is not finite: {f1}")
+    reset_launch_counts()
+    f1_loaded = serving.ServingEvaluator(trainer, [b8], cache_dir=cache_dir).evaluate()
+    loaded_launches = launch_counts()
+    files = sorted(p.name for p in cache_dir.glob("sa1_*.npz"))
+    if loaded_launches["ball_query.multiscale"] != 0 or len(files) != 1 or abs(f1_loaded - f1) > 1e-9:
+        fail(f"the second evaluator did not serve from its cache file: {files}, {loaded_launches}, "
+             f"F1 {f1_loaded} vs {f1}")
+    shutil.rmtree(cache_dir)  # hundreds of MB of planes, not an output
+    # bfloat16 S=8: serving against the cold unpaired forward, reported
+    caches8 = ev.batches[0][2]
+    d_bf16 = float((model(strip(b8), p8, sa1_caches=caches8).rel_logprobs
+                    - model(b8.to("cuda"), p8).rel_logprobs).abs().max())
+    del ev, caches8
+    # float32 S=1: card vs CPU, and serving vs cold on the card
+    b1 = SceneBatch.stack(samples[:1])
+    pack1 = SlotPack.build(b1, bucket=8)
+    m_gpu, m_cpu = SGPN(device="cuda", seed=args.seed + 1), SGPN(device="cpu", seed=args.seed + 1)
+
+    def serve(m, dev):
+        pk = pack1.to(dev)
+        return m(serving._strip_points(b1).to(dev), pk,
+                 sa1_caches=serving.build_sgpn_sa1_caches(m, b1.to(dev), pk))
+
+    out_gpu = serve(m_gpu, "cuda")
+    t0 = time.perf_counter()
+    out_cpu = serve(m_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    cold = m_gpu(b1.to("cuda"), pack1.to("cuda"))
+    em, om = torch.from_numpy(b1.edge_mask), torch.from_numpy(b1.obj_mask)
+    d_rel = float((out_gpu.rel_logprobs.cpu()[em] - out_cpu.rel_logprobs[em]).abs().max())
+    d_obj = float((out_gpu.obj_logprobs.cpu()[om] - out_cpu.obj_logprobs[om]).abs().max())
+    d_cold = max(float((out_gpu.rel_logprobs - cold.rel_logprobs).abs().max()),
+                 float((out_gpu.obj_logprobs - cold.obj_logprobs).abs().max()))
+    finite = bool(torch.isfinite(out_gpu.rel_logprobs).all() and torch.isfinite(out_gpu.obj_logprobs).all())
+    srv = {"scenes": 8, "dtype": "bfloat16", "macro_f1": f1, "macro_f1_from_cache_files": f1_loaded,
+           "cache_files": files, "seconds": serve_s, "launches": launches,
+           "launches_loading_cache": loaded_launches, "bf16_s8_serving_vs_cold_max_abs_diff": d_bf16,
+           "f32_s1_rel_max_abs_diff": d_rel, "f32_s1_obj_max_abs_diff": d_obj,
+           "f32_s1_serving_vs_cold_max_abs_diff": d_cold, "cpu_reference_seconds": cpu_s, "finite": finite}
+    results["serving"] = srv
+    emit({"phase": "serving", **srv})
+    if not finite or d_rel > 1e-3 or d_obj > 1e-3 or d_cold > 1e-4:
+        fail(f"S=1 float32 serving differs: card vs CPU rel {d_rel} obj {d_obj}; vs cold {d_cold}")
+    del m_gpu, m_cpu, out_gpu, out_cpu, cold
+
+    # timing_serving: the S=64 bf16 batch, caches resident
+    bS = SceneBatch.stack(samples[:S])
+    del samples
+    pS = SlotPack.build(bS).to("cuda")
+    full = bS.to("cuda")
+    torch.cuda.synchronize()
+    built = []
+    t0 = time.perf_counter()
+    build_calls = [c for c in rec.record(lambda: built.append(serving.build_sgpn_sa1_caches(model, full, pS)))
+                   if c[0] == "ball_query_multiscale"]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    caches = built[0]
+    del full, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_call = []
+
+    def time_calls(calls, reps):
+        for name, cargs, _kw, _g in calls:
+            k_ms = cuda_ms(lambda: run_serving_call(name, cargs, plain=False), reps)
+            p_ms = cuda_ms(lambda: run_serving_call(name, cargs, plain=True), 1)
+            b_ms, b_by, info = serving_bound(name, cargs)
+            for d, v in ((stats["ms"], k_ms), (stats["plain_ms"], p_ms), (stats["bound_ms"], b_ms)):
+                d[name] = d.get(name, 0.0) + v
+            stats["bound_t"][name][0 if b_by == "bytes" else 1] += b_ms
+            shape = tuple((cargs[1] if name == "ball_query_multiscale" else cargs[0]).shape)
+            per_call.append({"row": name, "card": smi, "shape": str(shape), "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, **info})
+            emit({"phase": "timing_serving_kernel", **per_call[-1]})
+
+    time_calls(build_calls, 3)
+    del build_calls
+    bst = strip(bS)
+    model(bst, pS, sa1_caches=caches)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model(bst, pS, sa1_caches=caches)
+    torch.cuda.synchronize()
+    per_batch = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = model(bst, pS, sa1_caches=caches)
+    torch.cuda.synchronize()
+    batch_ms = 1e3 * (time.perf_counter() - t0) / reps
+    e2e = {"card": smi, "scenes": S, "dtype": "bfloat16", "batch_ms": batch_ms, "scenes_per_s": S / (batch_ms / 1e3),
+           "peak_mem_bytes": peak, "cache_build_host_seconds": build_s,
+           "cache_bytes": sum(c.nbytes for c in caches), "object_rows": int(pS.obj_idx.numel()),
+           "relation_rows": int(pS.edge_idx.numel()), "launches_per_batch": per_batch,
+           "finite": bool(torch.isfinite(out.rel_logprobs).all())}
+    e2e["profile"] = profile_step(lambda: model(bst, pS, sa1_caches=caches), batch_ms)
+    emit({"phase": "timing_serving", **e2e})
+    if not e2e["finite"]:
+        fail(f"S={S} bfloat16 serving log-probs are not finite")
+    fwd_calls = [c for c in rec.record(lambda: model(bst, pS, sa1_caches=caches)) if c[0] == "serving_sa1_mlp"]
+    torch.cuda.synchronize()
+    time_calls(fwd_calls, 5)
+    results["timing_serving"] = {"e2e": e2e, "per_call": per_call}
+    torch.set_grad_enabled(True)
+    del fwd_calls, caches, bst, pS, out, model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
@@ -680,7 +970,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     per_call = []
     kern_ms, plain_ms, bound_ms = {}, {}, {}
-    bound_t = {r[0]: [0.0, 0.0] for r in ROWS + TRAIN_ROWS}  # bytes time, operations time
+    bound_t = {r[0]: [0.0, 0.0] for r in ROWS + TRAIN_ROWS + SERVING_ROWS}  # bytes time, operations time
     for name, cargs, ckw, _g in calls:
         row = row_of(name, ckw)
         k_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=False), 5)
@@ -701,7 +991,8 @@ def main(argv=None) -> int:
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_t": bound_t}
     train_phases(args, rec, smi, results, stats)
-    rows = ROWS + TRAIN_ROWS
+    serving_phases(args, rec, smi, results, stats)
+    rows = ROWS + TRAIN_ROWS + SERVING_ROWS
     unmeasured = [r[0] for r in rows if r[0] not in errs or r[0] not in kern_ms]
     if unmeasured:
         fail(f"kernels with no check or no timing in this run: {unmeasured}")

@@ -28,6 +28,12 @@ supports wider than one chunk, whose features are model inputs;
 :mod:`or4d_tpu_torch.ops.ball_query_group` from a layer-1 plane otherwise),
 and ``DelayedSharedMLP.post`` runs BN/ReLU and the second layer on them in
 PyTorch before the max over the slots.
+
+Serving mode (:mod:`or4d_tpu_torch.serving`) hands SA1 a cache of its
+weight-independent geometry (FPS centroids and the grouped [p_abs | f]
+planes per scale); SA1 then runs only its MLP chain on the cached planes,
+one :mod:`or4d_tpu_torch.ops.serving_sa1_mlp` kernel call per scale, and
+SA2/SA3 run as in cold eval.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from or4d_tpu_torch.ops.ball_query_group import ball_query_group
 from or4d_tpu_torch.ops.ball_query_group_raw import ball_query_group_raw
 from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+from or4d_tpu_torch.ops.serving_sa1_mlp import serving_sa1_mlp
 
 SA1_RADII = (0.1, 0.2)
 SA2_RADII = (0.2, 0.4)
@@ -120,6 +127,9 @@ class SetAbstractionMSG(nn.Module):
     with ``features_alt`` (paired, eval only) (B, npoint, 2, sum of widths):
     the directions differ only in the last feature channel. ``train=True``
     takes batch statistics over the rows that ``mask`` (B,) marks valid.
+    With ``cache`` (a serving ``SA1Cache``, eval only) ``xyz`` and
+    ``features`` are not read: the cached centroids and planes stand in for
+    FPS and the ball query.
     """
 
     def __init__(self, in_features: int, npoint: int, scales: Sequence[SAScale], dtype=torch.float32,
@@ -131,7 +141,11 @@ class SetAbstractionMSG(nn.Module):
         for si, sc in enumerate(self.scales):
             self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
 
-    def forward(self, xyz, features, features_alt=None, mask=None, train: bool = False):
+    def forward(self, xyz, features, features_alt=None, mask=None, train: bool = False, cache=None):
+        if cache is not None:
+            if train or features_alt is not None:
+                raise ValueError("the SA1 serving cache is an unpaired eval path")
+            return cache.new_xyz, self._cached_forward(cache)
         if train:
             if features_alt is not None:
                 raise ValueError("paired SA is an eval path")
@@ -166,6 +180,20 @@ class SetAbstractionMSG(nn.Module):
             # per scale (B, M, 2*C2) -> (B, M, 2, C2): direction before channels
             outs = [o.view(B, self.npoint, 2, -1) for o in outs]
         return new_xyz, torch.cat(outs, dim=-1)
+
+    def _cached_forward(self, cache) -> torch.Tensor:
+        """Per scale: the serving kernel on the cached planes, with the
+        per-query term of the cached centroids and the folded eval BNs."""
+        if cache.c0 != self.mlp_0.in_features or len(cache.grouped) != len(self.scales):
+            raise ValueError(f"cache of {cache.c0} channels and {len(cache.grouped)} scales does not fit an SA "
+                             f"stage of {self.mlp_0.in_features} channels and {len(self.scales)} scales")
+        outs = []
+        for si, (sc, g) in enumerate(zip(self.scales, cache.grouped)):
+            if g.shape[2] != sc.nsample:
+                raise ValueError(f"scale {si}: the cache holds {g.shape[2]} slots, the stage takes {sc.nsample}")
+            m = getattr(self, f"mlp_{si}")
+            outs.append(serving_sa1_mlp(g, m.bq_term(cache.new_xyz), m.w0_matrix(), *m.fused_eval_params()))
+        return torch.cat(outs, dim=-1)
 
     def _train_forward(self, xyz, features, mask):
         """Per scale: grouped layer-1 rows from a grouping kernel, then
@@ -218,6 +246,9 @@ class PointNet2MSGEncoder(nn.Module):
 
     ``train=True``: batch statistics over the rows ``mask`` (B,) marks
     valid, running statistics updated.
+
+    ``sa1_cache`` (serving, eval, unpaired): SA1 runs on the cached geometry
+    and ``pc`` is not read (it may be None).
     """
 
     def __init__(self, input_dim: int = 6, out_size: int = 256, sa_npoints=(512, 128),
@@ -236,8 +267,14 @@ class PointNet2MSGEncoder(nn.Module):
         )
         self.sa3 = SetAbstractionAll(3 + 256, (256, out_size), dtype, device, generator)
 
-    def forward(self, pc: torch.Tensor, paired: bool = False, mask: torch.Tensor | None = None,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, pc: torch.Tensor | None, paired: bool = False, mask: torch.Tensor | None = None,
+                train: bool = False, sa1_cache=None) -> torch.Tensor:
+        if sa1_cache is not None:
+            if paired or train:
+                raise ValueError("serving SA1 caches are an unpaired eval path")
+            xyz, feats = self.sa1(None, None, cache=sa1_cache)
+            xyz, feats = self.sa2(xyz, feats.contiguous())
+            return self.sa3(xyz, feats)
         xyz = pc[..., 0:3].float().contiguous()  # geometry stays f32
         if train:
             if paired:

@@ -11,7 +11,9 @@ The model consumes a whole :class:`SceneBatch` (scenes stacked, objects and
 edges padded). A :class:`SlotPack` runs the encoders over the valid rows
 only and scatters the features back; a paired pack (pair-shared crops) runs
 the relation encoder once per unordered pair and scatters both directions
-(eval only: training encodes every directed edge).
+(eval only: training encodes every directed edge). Serving mode hands the
+encoders SA1 caches built for the batch's flat pack
+(:mod:`or4d_tpu_torch.serving`); the raw crops are then never read.
 
 ``forward`` builds no autograd graph only under ``torch.no_grad()``, which
 the eval entry points (``infer.predict_relations``, ``Trainer.eval_step``)
@@ -90,19 +92,30 @@ class SGPN(nn.Module):
         return self.gcn.layer_0.nn1.dense_0.weight.device
 
     def forward(self, batch: SceneBatch, pack: SlotPack | None = None, train: bool = False,
-                generator: torch.Generator | None = None, dropout_keep: dict | None = None) -> SGPNOutputs:
+                generator: torch.Generator | None = None, dropout_keep: dict | None = None,
+                sa1_caches=None) -> SGPNOutputs:
         """``batch`` and ``pack`` hold tensors on the model's device.
 
         ``train=True``: batch statistics over the valid rows (pack validity,
         or the batch masks without a pack), running statistics updated, and
         head dropout with keep-masks ``dropout_keep`` {"obj": (S, O, 256),
-        "rel": (S, E, 256)} or, where absent, drawn from ``generator``."""
+        "rel": (S, E, 256)} or, where absent, drawn from ``generator``.
+
+        ``sa1_caches``: (obj_cache, rel_cache) serving SA1 geometry built
+        for this batch and its flat pack (``serving.build_sgpn_sa1_caches``);
+        the crops are not read. Eval only, unpaired packs only."""
+        if sa1_caches is not None:
+            if train or (pack is not None and pack.paired):
+                raise ValueError("sa1_caches: eval-only, unpaired packs")
+            obj_feat = self.obj_encoder(None, sa1_cache=sa1_caches[0])
+            rel_feat = self.rel_encoder(None, sa1_cache=sa1_caches[1])
+            return self._head(batch, pack, obj_feat, rel_feat, False, False, generator, dropout_keep)
         S, O, Po, Co = batch.obj_points.shape
         _, E, Pr, Cr = batch.rel_points.shape
-        obj_flat = batch.obj_points.reshape(S * O, Po, Co).float()
-        rel_flat = batch.rel_points.reshape(S * E, Pr, Cr).float()
         obj_rows = batch.obj_mask.reshape(S * O).float()
         edge_rows = batch.edge_mask.reshape(S * E).float()
+        obj_flat = batch.obj_points.reshape(S * O, Po, Co).float()
+        rel_flat = batch.rel_points.reshape(S * E, Pr, Cr).float()
         paired = not train and pack is not None and pack.paired
         if pack is not None:
             obj_flat = obj_flat[pack.obj_idx]
@@ -116,6 +129,13 @@ class SGPN(nn.Module):
 
         obj_feat = self.obj_encoder(obj_flat, mask=obj_rows, train=train)
         rel_feat = self.rel_encoder(rel_flat, paired=paired, mask=edge_rows, train=train)
+        return self._head(batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep)
+
+    def _head(self, batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep) -> SGPNOutputs:
+        """Encoder rows scattered back into the padded layout, then the GCN
+        and the heads."""
+        S, O = batch.obj_points.shape[:2]
+        E = batch.rel_points.shape[1]
         D, De = self.point_feature_size, self.edge_feature_size
         if pack is not None:
             ov = pack.obj_valid[:, None].to(obj_feat.dtype)

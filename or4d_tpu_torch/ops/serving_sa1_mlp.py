@@ -1,0 +1,118 @@
+"""Serving SA1 MLP on cached planes: the CUDA kernel
+``csrc/serving_sa1_mlp.cu`` and its plain PyTorch version.
+
+Replaces ``serving_sa1_mlp_pallas`` (or4d_tpu/ops/pallas_serving_mlp.py:128).
+What bounds the kernel on the H100 and what its design does about it is in
+the header of the CUDA source.
+
+For each row r and query m of one SA1 scale:
+``out[r, m] = max_s relu(a1 * (round_W1(relu((A_s - Bq) * a0 + b0)) @ W1) + b1)``
+with ``A_s = round(planes[r, m, s, :C0] @ W0)`` accumulated in f32, over
+the ``ns`` cached slots; the output in the planes' dtype. ``planes`` is the
+port's cache layout (R, M, ns, 8): the grouped [p_abs | f] rows of each
+(query, slot), channels zero-padded to 8 (:mod:`or4d_tpu_torch.serving`).
+
+The wrapper takes the plain version for CPU tensors only; a CUDA tensor
+always launches the kernel, and a failed launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches (one per SA1 scale)
+LAUNCHES = {"mlp": 0}
+
+C0P = 8  # plane channels (zero-padded)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_C1, _MAX_C2, _MAX_NS = 128, 128, 128
+_PLAIN_ELEMS = 1 << 26  # bound on the plain version's per-chunk temporaries
+
+
+def _check(planes, Bq, W0, a0, b0, W1, a1, b1):
+    if planes.dim() != 4 or planes.shape[-1] != C0P:
+        raise ValueError(f"planes must be (R, M, ns, {C0P}), got {tuple(planes.shape)}")
+    T = planes.dtype
+    if T not in _DTYPES:
+        raise TypeError(f"planes dtype must be float32 or bfloat16, got {T}")
+    R, M, ns, _ = planes.shape
+    C0, C1 = W0.shape
+    C2 = W1.shape[1]
+    if not 1 <= C0 <= C0P:
+        raise ValueError(f"W0 must have 1 to {C0P} rows (the plane channels), got {C0}")
+    shapes = {"Bq": (Bq, (R, M, C1), T), "W0": (W0, (C0, C1), T), "W1": (W1, (C1, C2), T),
+              "a0": (a0, (C1,), torch.float32), "b0": (b0, (C1,), torch.float32),
+              "a1": (a1, (C2,), torch.float32), "b1": (b1, (C2,), torch.float32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    for name, t in (("planes", planes), *((n, v[0]) for n, v in shapes.items())):
+        if t.device != planes.device:
+            raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ns < 1:
+        raise ValueError("the planes need at least one slot")
+    return R, M, ns, C0, C1, C2, T
+
+
+def serving_sa1_mlp_plain(planes, Bq, W0, a0, b0, W1, a1, b1):
+    """The plain PyTorch version, rounding at the kernel's points. Works in
+    chunks of rows on any device."""
+    R, M, ns, _ = planes.shape
+    C0, C1 = W0.shape
+    C2 = W1.shape[1]
+    T = planes.dtype
+    W0f, W1f = W0.float(), W1.float()
+    step = max(1, min(R, _PLAIN_ELEMS // max(M * ns * max(C1, C2), 1)))
+    outs = []
+    for r0 in range(0, R, step):
+        sl = slice(r0, r0 + step)
+        A = (planes[sl, ..., :C0].float() @ W0f).to(T).float()  # (b, M, ns, C1)
+        h = torch.relu((A - Bq[sl].float()[:, :, None, :]) * a0 + b0).to(W1.dtype).float()
+        o = torch.relu((h @ W1f) * a1 + b1)
+        outs.append(o.amax(dim=2).to(T))
+    return torch.cat(outs) if outs else planes.new_empty(0, M, C2)
+
+
+def _launch(planes, Bq, W0, a0, b0, W1, a1, b1, dims):
+    from or4d_tpu_torch.ops._build import library
+
+    R, M, ns, C0, C1, C2, T = dims
+    if C1 > _MAX_C1 or C2 > _MAX_C2 or ns > _MAX_NS:
+        raise ValueError(f"serving_sa1_mlp kernel limits: C1<={_MAX_C1}, C2<={_MAX_C2}, ns<={_MAX_NS}; "
+                         f"got C1={C1}, C2={C2}, ns={ns}")
+    if planes.data_ptr() % 16:
+        raise ValueError("serving_sa1_mlp: the planes must start on a 16-byte boundary")
+    out = torch.empty(R, M, C2, dtype=T, device=planes.device)
+    if R == 0 or M == 0:
+        return out
+    fn = library("serving_sa1_mlp").or4d_serving_sa1_mlp
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P, P]
+    fn.restype = I
+    dev = planes.device
+    with torch.cuda.device(dev):
+        err = fn(_DTYPES[T], planes.data_ptr(), Bq.data_ptr(), W0.data_ptr(), a0.data_ptr(), b0.data_ptr(),
+                 W1.data_ptr(), a1.data_ptr(), b1.data_ptr(), R, M, ns, C0, C1, C2, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"serving_sa1_mlp kernel launch failed: CUDA error {err}")
+    LAUNCHES["mlp"] += 1
+    return out
+
+
+def serving_sa1_mlp(planes, Bq, W0, a0, b0, W1, a1, b1) -> torch.Tensor:
+    """One serving SA1 scale -> (R, M, C2) in the planes' dtype.
+
+    planes (R, M, ns, 8), Bq (R, M, C1), W0 (C0, C1) and W1 (C1, C2) in one
+    dtype (float32 or bfloat16); a0, b0 (C1,) and a1, b1 (C2,) float32
+    folded-BN affines."""
+    dims = _check(planes, Bq, W0, a0, b0, W1, a1, b1)
+    if planes.device.type == "cpu":
+        return serving_sa1_mlp_plain(planes, Bq, W0, a0, b0, W1, a1, b1)
+    if planes.device.type != "cuda":
+        raise ValueError(f"serving_sa1_mlp: unsupported device {planes.device}")
+    return _launch(planes, Bq, W0, a0, b0, W1, a1, b1, dims)

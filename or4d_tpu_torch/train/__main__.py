@@ -1,14 +1,16 @@
 """Train SGPN on synthetic labeled scenes.
 
     python -m or4d_tpu_torch.train --synthetic --config no_gt|tiny --scenes S --steps K \
-        [--device cpu] [--checkpoint-dir D] --output history.json
+        [--device cpu] [--checkpoint-dir D] [--serving [--serving-cache-dir D]] --output history.json
 
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 Batches of the config's ``scene_batch`` scenes cycle until K steps are
 done; class weights come from the scenes' labels. With ``--checkpoint-dir``
 the latest checkpoint there is restored first and one is saved at the end.
 The output JSON holds each step's losses and seconds and the relation macro
-F1 of the final weights on the training scenes.
+F1 of the final weights on the training scenes; with ``--serving`` that F1
+goes through a ``ServingEvaluator`` (SA1 geometry cached, optionally
+persisted in ``--serving-cache-dir``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--serving", action="store_true", help="evaluate the final weights on cached SA1 geometry")
+    p.add_argument("--serving-cache-dir", default=None, help="persist the serving caches here")
     p.add_argument("--output", required=True)
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -68,8 +72,14 @@ def main(argv: list[str] | None = None) -> dict:
         print(json.dumps(rec), flush=True)
     if args.checkpoint_dir:
         ckpt.save(args.checkpoint_dir, trainer.model, trainer.optimizer, trainer.step)
+    if args.serving:
+        from or4d_tpu_torch.serving import ServingEvaluator
+
+        f1 = ServingEvaluator(trainer, batches, cache_dir=args.serving_cache_dir).evaluate()
+    else:
+        f1 = trainer.evaluate(batches)
     result = {"config": args.config, "device": str(device), "scenes": args.scenes, "history": history,
-              "train_macro_f1": trainer.evaluate(batches)}
+              "train_macro_f1": f1}
     if not all(math.isfinite(r["loss"]) for r in history):
         raise RuntimeError(f"non-finite loss in {history}")
     Path(args.output).write_text(json.dumps(result, indent=1))

@@ -96,12 +96,23 @@ class Trainer:
         return predict_relations(self.model, batches, self.vocab)
 
     def fit(self, train_batches, val_batches=None, epochs: int | None = None,
-            generator: torch.Generator | None = None, log_every: int = 100, checkpoint_dir: str | None = None):
+            generator: torch.Generator | None = None, log_every: int = 100, checkpoint_dir: str | None = None,
+            serving_val: bool = False):
         """Epoch loop with per-take metric accumulation (reference
         training_epoch_end/validation_epoch_end); a checkpoint per epoch
-        when ``checkpoint_dir``. Returns the per-epoch history."""
+        when ``checkpoint_dir``. Returns the per-epoch history.
+
+        ``serving_val``: the per-epoch validation goes through one
+        :class:`~or4d_tpu_torch.serving.ServingEvaluator` built before the
+        loop, so the val split's weight-independent SA1 geometry is computed
+        once instead of every epoch."""
         from or4d_tpu_torch.train import checkpoint as ckpt
 
+        server = None
+        if serving_val and val_batches is not None:
+            from or4d_tpu_torch.serving import ServingEvaluator
+
+            server = ServingEvaluator(self, list(val_batches))
         epochs = epochs or self.cfg.max_epochs
         generator = generator if generator is not None else torch.Generator().manual_seed(self.cfg.seed)
         train_batches = list(train_batches)
@@ -119,7 +130,7 @@ class Trainer:
             record = {"epoch": epoch, "train_loss": float(np.mean(losses)), "train_macro_f1": acc.macro_f1,
                       "seconds": time.perf_counter() - t0}
             if val_batches is not None:
-                record["val_macro_f1"] = self.evaluate(val_batches)
+                record["val_macro_f1"] = server.evaluate() if server is not None else self.evaluate(val_batches)
             history.append(record)
             print(f"epoch {epoch}: {record}")
             if checkpoint_dir:

@@ -15,6 +15,8 @@ from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
 from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
 from or4d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale, ball_query_multiscale_plain
+from or4d_tpu_torch.ops.serving_sa1_mlp import serving_sa1_mlp, serving_sa1_mlp_plain
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -201,3 +203,63 @@ def test_group_wrappers_raise_on_bad_inputs(card):
         bqgr.group_raw_fwd(xyz, q, 0.3, 8, torch.randn(6, 160, device=card), raw)
     with pytest.raises(ValueError):  # idx of the wrong dtype
         bqg.group_bwd(torch.zeros(2, 32, 8, dtype=torch.int64, device=card), torch.randn(2, 32, 8, 16, device=card), 300)
+
+
+# serving path (TPU rows 8 and 7): the multi-scale ball query exactly; the
+# serving SA1 MLP within the SA tolerance (another summation order in the
+# plain version's matmuls)
+
+
+@pytest.mark.parametrize("N,scales", [(4000, ((0.1, 16), (0.2, 32))), (8000, ((0.1, 16), (0.2, 32))),
+                                      (8000, ((0.2, 64),)), (600, ((0.05, 4), (0.4, 64), (0.8, 700)))])
+def test_multiscale_ball_query_kernel_exact(card, N, scales):
+    xyz = _cloud(N + 7, 3, N)
+    q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(N))[:512]].contiguous()
+    q[1, 5] = 40.0  # no hit: index 0 in every slot
+    want = ball_query_multiscale_plain(scales, xyz, q)
+    reset_launch_counts()
+    got = ball_query_multiscale(scales, xyz.to(card), q.to(card))
+    assert launch_counts()["ball_query.multiscale"] == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+        assert not g[1, 5].any()
+
+
+def _serving_inputs(seed, R, M, ns, C0, C1, C2, dtype):
+    g = torch.Generator().manual_seed(seed)
+    planes = torch.zeros(R, M, ns, 8)
+    planes[..., :C0] = torch.randn(R, M, ns, C0, generator=g)
+    return [planes.to(dtype), (torch.randn(R, M, C1, generator=g) * 0.5).to(dtype),
+            (torch.randn(C0, C1, generator=g) / C0 ** 0.5).to(dtype), torch.rand(C1, generator=g) + 0.5,
+            torch.randn(C1, generator=g) * 0.2, (torch.randn(C1, C2, generator=g) / C1 ** 0.5).to(dtype),
+            torch.rand(C2, generator=g) + 0.5, torch.randn(C2, generator=g) * 0.2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns,C0,C2,M", [(16, 6, 64, 512), (32, 7, 128, 512), (64, 7, 128, 100), (5, 3, 40, 70)])
+def test_serving_mlp_kernel_matches_plain(card, dtype, ns, C0, C2, M):
+    args = _serving_inputs(ns + C2, 3, M, ns, C0, 64, C2, dtype)
+    want = serving_sa1_mlp_plain(*args)
+    reset_launch_counts()
+    got = serving_sa1_mlp(*[a.to(card) for a in args])
+    assert launch_counts()["serving_sa1.mlp"] == 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_serving_wrappers_raise_outside_limits(card):
+    xyz = _cloud(1, 1, 300).to(card)
+    with pytest.raises(ValueError):  # nsample above the kernel's limit
+        ball_query_multiscale(((0.2, 2000),), xyz, xyz[:, :16].contiguous())
+    with pytest.raises(ValueError):  # five scales
+        ball_query_multiscale(((0.2, 4),) * 5, xyz, xyz[:, :16].contiguous())
+    args = [a.to(card) for a in _serving_inputs(1, 2, 16, 8, 6, 64, 256, torch.float32)]
+    with pytest.raises(ValueError):  # C2 above the kernel's limit
+        serving_sa1_mlp(*args)
+    args = [a.to(card) for a in _serving_inputs(1, 2, 16, 160, 6, 64, 64, torch.float32)]
+    with pytest.raises(ValueError):  # ns above the kernel's limit
+        serving_sa1_mlp(*args)
+    args = [a.to(card) for a in _serving_inputs(1, 2, 16, 8, 6, 64, 64, torch.float32)]
+    with pytest.raises(ValueError):  # more than 8 channels in the cache
+        serving_sa1_mlp(torch.zeros(2, 16, 8, 9, device=card), *args[1:])
+    with pytest.raises(ValueError):  # planes off a 16-byte boundary
+        serving_sa1_mlp(torch.zeros(2 * 16 * 8 * 8 + 1, device=card)[1:].view(2, 16, 8, 8), *args[1:])

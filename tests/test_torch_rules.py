@@ -2,9 +2,10 @@
 
 * no module of ``or4d_tpu_torch`` (the train and ops modules included) and
   not ``chip_smoke.py`` imports jax, flax, optax or the JAX package;
-* entry points (``infer``, ``train``) raise without a card unless they are
-  given ``device="cpu"``; ``python -m or4d_tpu_torch.train --device cpu``
-  writes a finite history;
+* entry points (``infer``, ``train``, ``serving``) raise without a card
+  unless they are given ``device="cpu"``; ``python -m or4d_tpu_torch.train
+  --device cpu`` writes a finite history, and ``python -m
+  or4d_tpu_torch.serving --device cpu`` prints a finite macro F1;
 * a kernel build with no compiler raises (no plain-version fallback);
 * the weight converter raises on a missing or an extra key.
 """
@@ -67,6 +68,11 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main(["--synthetic", "--config", "tiny", "--scenes", "1", "--steps", "1", "--output", str(hist)])
     assert not hist.exists()
+    from or4d_tpu_torch.serving import main as serving_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_main(["--synthetic", "--config", "tiny", "--scenes", "1", "--cache-dir", str(tmp_path / "c")])
+    assert not (tmp_path / "c").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -84,6 +90,31 @@ def test_train_cli_on_cpu_writes_a_finite_history(tmp_path):
     assert [r["step"] for r in res["history"]] == [1, 2]
     assert all(math.isfinite(r[k]) for r in res["history"] for k in ("loss", "loss_obj", "loss_rel"))
     assert checkpoint.latest_step(tmp_path / "ck") == 2
+
+
+def test_serving_cli_on_cpu_prints_a_finite_macro_f1(tmp_path, capsys):
+    import json
+    import math
+
+    from or4d_tpu_torch.serving import main as serving_main
+
+    args = ["--synthetic", "--config", "tiny", "--scenes", "5", "--device", "cpu", "--cache-dir", str(tmp_path)]
+    rec = serving_main(args)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert rec["split"] == "synthetic" and math.isfinite(rec["relation_macro_f1"])
+    assert len(list(tmp_path.glob("sa1_*.npz"))) == 2  # two batches of the config's 4 scenes
+    assert serving_main(args) == rec  # from the persisted caches
+
+
+def test_train_cli_serving_f1_matches_cold(tmp_path):
+    from or4d_tpu_torch.train.__main__ import main as train_main
+
+    base = ["--synthetic", "--config", "tiny", "--scenes", "2", "--steps", "1", "--device", "cpu"]
+    cold = train_main(base + ["--output", str(tmp_path / "a.json")])
+    fast = train_main(base + ["--serving", "--serving-cache-dir", str(tmp_path / "c"), "--output",
+                              str(tmp_path / "b.json")])
+    assert abs(fast["train_macro_f1"] - cold["train_macro_f1"]) < 1e-9
+    assert len(list((tmp_path / "c").glob("sa1_*.npz"))) == 1
 
 
 def test_infer_cli_on_cpu_writes_scan_relations(tmp_path):
