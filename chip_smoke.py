@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
-NVIDIA GPU: the SGPN eval path, the SGPN train step and serving mode (cached
-SA1 geometry) at the paper's full widths.
+NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
+path and with ``train_raw`` false), the bounds pre-pass and serving mode
+(cached SA1 geometry) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -24,26 +25,35 @@ slice and train phases.
 5. timing  — CUDA-event times of each kernel on the inputs of an S=64
              bfloat16 batch (the bench.py default) beside its plain version
              and its bound; end-to-end batch time, scenes/s and peak memory.
-6. check_train — the train grouping kernels (forward and backward, raw and
-             plane mode) against their plain versions on the card, on the
-             inputs and cotangents of one S=8 float32 ``no_gt`` train step
-             (cut to 64 clouds), in float32 and bfloat16: forwards exactly,
-             dA within 1e-5 and dW0 within 1e-4 of their largest value
-             (another summation order), plus one bf16 ulp in bfloat16.
-7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes:
-             finite losses, and every launch counter of the train path (FPS
-             with and without counts, both grouping kernels forward and
-             backward) rises. Then one float32 S=1 step on the card and on
-             the CPU from the same weights and random draws: losses within
-             1e-4, every gradient within 1e-2 and every updated parameter
-             within 1e-3 of the model's largest (a ~1e-5 forward difference
-             flips a few max-pool winners, each moving a slot's gradient).
-             Then ``Trainer.evaluate`` gives a finite macro F1.
-8. timing_train — ms per train step, scenes/s and peak memory in float32
-             and bfloat16 at S=8 (or the largest of 4 and 2 that fits), the
-             float32 step's device time by kernel (torch.profiler), and each
-             grouping kernel's ms per step on the step's own inputs beside
-             its plain version and its bound.
+6. check_train — the train grouping kernels (forward and backward: raw
+             mode, plane mode, and plane mode with the FPS bound, SA1's
+             grouping with ``train_raw`` false) against their plain versions
+             on the card, on the inputs and cotangents of one S=8 float32
+             ``no_gt`` train step on each SA1 path (cut to 64 clouds), in
+             float32 and bfloat16: forwards exactly, dA within 1e-5 and dW0
+             within 1e-4 of their largest value (another summation order),
+             plus one bf16 ulp in bfloat16. The bounds pre-pass on the
+             ``train_raw=False`` step's SA1 geometry: exactly its plain
+             version, and the need and hit totals of the FPS kernel's counts.
+7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes, on
+             each SA1 path: finite losses, and every launch counter of that
+             path (FPS with and without counts, its grouping kernels forward
+             and backward) rises, the other path's SA1 counters do not. Then
+             per path one float32 S=1 step on the card and on the CPU from
+             the same weights and random draws: losses within 1e-4, every
+             gradient within 1e-2 and every updated parameter within 1e-3 of
+             the model's largest (a ~1e-5 forward difference flips a few
+             max-pool winners, each moving a slot's gradient). Then
+             ``Trainer.evaluate`` gives a finite macro F1.
+8. timing_train — per SA1 path, ms per train step, scenes/s and peak
+             memory in float32 and bfloat16 at S=8 (or the largest of 4 and
+             2 that fits), the float32 step's device time by kernel
+             (torch.profiler), and each grouping kernel's ms per step on the
+             step's own inputs beside its plain version and its bound (rows
+             5 and 6 from the raw step, row 9 from the other). Then the
+             bounds pre-pass on the ``train_raw=False`` float32 step's full
+             SA1 geometry (its own path: counters zeroed before, read after),
+             and its ms beside its plain version and its bound.
 9. check_serving — the multi-scale ball query (exactly, every scale) and
              the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
              plain versions on the card, on the inputs of an S=8 bfloat16
@@ -109,6 +119,17 @@ TRAIN_ROWS = (
     ("group_fwd", "group.fwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:295"),
     ("group_bwd", "group.bwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:413"),
 )
+# TPU kernel rows 9 (ball_query_group_pallas_gated: fwd and its VJP's bwd),
+# driven by the train step with train_raw false, and 10
+# (ball_query_bounds_pallas), driven on that step's SA1 geometry
+GATED_ROWS = (
+    ("group_gated_fwd", "group_gated.fwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:1563"),
+    ("group_gated_bwd", "group_gated.bwd", GROUP_SRC, "or4d_tpu/ops/pallas_ball_query.py:1656"),
+)
+BOUNDS_ROWS = (
+    ("ball_query_bounds", "bounds.prepass", "or4d_tpu_torch/ops/csrc/ball_query_bounds.cu",
+     "or4d_tpu/ops/pallas_ball_query.py:498"),
+)
 # TPU kernel rows 7 (serving_sa1_mlp_pallas) and 8
 # (ball_query_multiscale_pallas), driven by serving mode
 SERVING_ROWS = (
@@ -118,7 +139,7 @@ SERVING_ROWS = (
      "or4d_tpu/ops/pallas_ball_query.py:139"),
 )
 SA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-BWD_TOL = {"group_raw_bwd": 1e-4, "group_bwd": 1e-5}  # of the largest |value|
+BWD_TOL = {"group_raw_bwd": 1e-4, "group_bwd": 1e-5, "group_gated_bwd": 1e-5}  # of the largest |value|
 
 
 def emit(obj) -> None:
@@ -143,7 +164,7 @@ class Recorder:
     that many clouds and copied (W0 is a weight and stays whole)."""
 
     NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp",
-             "ball_query_group", "ball_query_group_raw", "serving_sa1_mlp")
+             "ball_query_group", "ball_query_group_gated", "ball_query_group_raw", "serving_sa1_mlp")
     SERVING_NAMES = ("ball_query_multiscale",)
 
     def __init__(self):
@@ -251,16 +272,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def search_work(xyz, new_xyz, radius, ns, need) -> tuple[int, int]:
-    """(real slots, points scanned) of one ball-query search on these
-    inputs: a search ends at the ns-th hit; with counts (``need``) it ends
-    at the last hit it needs, without them a query short of ns hits scans
-    all N points. A query with no hit counts one slot."""
+def search_work(xyz, new_xyz, radius, ns, need) -> tuple[int, int, int]:
+    """(real slots, points scanned, points read) of one ball-query search
+    on these inputs: a search ends at the ns-th hit; with counts (``need``)
+    it ends at the last hit it needs, without them a query short of ns hits
+    scans all N points. A query with no hit counts one slot. Points read:
+    per cloud, the furthest point any of its searches reaches."""
     from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
 
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
-    real, scanned = 0, 0
+    real, scanned, read = 0, 0, 0
     step = max(1, (1 << 26) // (M * N))
     for s in range(0, B, step):
         idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
@@ -268,8 +290,19 @@ def search_work(xyz, new_xyz, radius, ns, need) -> tuple[int, int]:
         real += int(thr.clamp(min=1).sum())
         last = torch.gather(idx, 2, (thr - 1).clamp(min=0)[..., None])[..., 0] + 1
         full = thr < ns if need is None else torch.zeros_like(thr, dtype=torch.bool)
-        scanned += int(torch.where(full | (thr == 0), torch.full_like(last, N), last).sum())
-    return real, scanned
+        ends = torch.where(full | (thr == 0), torch.full_like(last, N), last)
+        scanned += int(ends.sum())
+        read += int(ends.amax(1).sum())
+    return real, scanned, read
+
+
+def rows_read(idx, N: int) -> int:
+    """Distinct support points that hit indices (B, M, ns) point at, over
+    all clouds: the plane rows a gather or scatter by them touches."""
+    flat = (torch.arange(idx.shape[0], device=idx.device)[:, None, None] * N + idx.long())[idx >= 0]
+    seen = torch.zeros(idx.shape[0] * N, dtype=torch.bool, device=idx.device)
+    seen[flat] = True
+    return int(seen.sum())
 
 
 def bound(name, args, kw) -> tuple[float, str, dict]:
@@ -301,7 +334,7 @@ def bound(name, args, kw) -> tuple[float, str, dict]:
         nbytes = (xyz.numel() * 4 + new_xyz.numel() * 4 + main.numel() * es + Bq.numel() * es
                   + W1.numel() * es + (W0.numel() * es if W0 is not None else 0) + 4 * (C1 + C2) * 4
                   + (need.numel() * 4 if need is not None else 0) + B * M * C2 * halves * es)
-        real, scanned = search_work(xyz, new_xyz, radius, ns, need)
+        real, scanned, _read = search_work(xyz, new_xyz, radius, ns, need)
         mm = real * halves * 2 * ((W0.shape[0] * C1 if W0 is not None else 0) + C1 * C2)
         f32_ops = scanned * 9 + real * halves * (4 * C1 + 3 * C2)
         # bf16 products run on the tensor cores, concurrently with the FP32
@@ -332,15 +365,21 @@ def group_jobs(name, a, g, dtype=None):
         fwd = lambda: bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw, need)
         fwd_plain = lambda: bqgr.group_raw_fwd_plain(xyz, q, r, ns, W0, raw, need)
         C0, C = W0.shape
-        main_bytes = raw.numel() * es + W0.numel() * es + (need.numel() * 4 if need is not None else 0)
+        # per support point its raw column; W0 and the bound once
+        row_bytes = C0 * es
+        other_bytes = W0.numel() * es + (need.numel() * 4 if need is not None else 0)
         prefix = "group_raw"
     else:
-        xyz, q, r, ns, A = a
-        A, need, C0, C = cast(A), None, 0, A.shape[-1]
-        fwd = lambda: bqg.group_fwd(xyz, q, r, ns, A)
-        fwd_plain = lambda: bqg.group_fwd_plain(xyz, q, r, ns, A)
-        main_bytes = A.numel() * es
-        prefix = "group"
+        # ball_query_group (row 6), or ball_query_group_gated (row 9) with
+        # the FPS counts' bound and counters of its own
+        gated = name == "ball_query_group_gated"
+        xyz, q, r, ns, A = a[:5]
+        A, need, C0, C = cast(A), a[5] if gated else None, 0, A.shape[-1]
+        counter = bqg.LAUNCHES_GATED if gated else bqg.LAUNCHES
+        fwd = lambda: bqg.group_fwd(xyz, q, r, ns, A, need, counter)
+        fwd_plain = lambda: bqg.group_fwd_plain(xyz, q, r, ns, A, need)
+        row_bytes, other_bytes = C * es, (need.numel() * 4 if gated else 0)
+        prefix = "group_gated" if gated else "group"
     B, N, _ = xyz.shape
     M = q.shape[1]
     slots = B * M * ns
@@ -350,21 +389,26 @@ def group_jobs(name, a, g, dtype=None):
         bwd_plain = lambda: bqgr.group_raw_bwd_plain(idx, g, raw)
         bwd_out_bytes = C0 * C * es
     else:
-        bwd = lambda: bqg.group_bwd(idx, g, N)
+        bwd = lambda: bqg.group_bwd(idx, g, N, counter)
         bwd_plain = lambda: bqg.group_bwd_plain(idx, g, N)
         bwd_out_bytes = B * N * C * es
 
     def fwd_bound():
-        real, scanned = search_work(xyz, q, r, ns, need)
-        nbytes = 12 * (B * N + B * M) + main_bytes + slots * (C * es + 4)
+        # the points the searches read, the queries, the plane rows (raw
+        # columns) of the points hit, and the slots and indices written
+        real, scanned, read = search_work(xyz, q, r, ns, need)
+        rows = rows_read(idx, N)
+        nbytes = 12 * (read + B * M) + rows * row_bytes + other_bytes + slots * (C * es + 4)
         # distances over the scanned points; raw mode also builds each real
         # slot's row (C0 x C multiply-adds)
-        return nbytes, scanned * 9 + real * 2 * C0 * C, {"real_slots": real, "scanned": scanned}
+        return nbytes, scanned * 9 + real * 2 * C0 * C, {"real_slots": real, "scanned": scanned,
+                                                          "points_read": read, "rows_read": rows}
 
     def bwd_bound():
         valid = int((idx >= 0).sum())
-        nbytes = slots * (4 + C * es) + (raw.numel() * es if prefix == "group_raw" else 0) + bwd_out_bytes
-        return nbytes, valid * (2 * C0 * C if prefix == "group_raw" else C), {"valid_slots": valid}
+        rows = rows_read(idx, N)
+        nbytes = slots * (4 + C * es) + (rows * row_bytes if prefix == "group_raw" else 0) + bwd_out_bytes
+        return nbytes, valid * (2 * C0 * C if prefix == "group_raw" else C), {"valid_slots": valid, "rows_read": rows}
 
     shape = (tuple(xyz.shape), M, ns, C0, C)
     return {f"{prefix}_fwd": (fwd, fwd_plain, fwd_bound, shape), f"{prefix}_bwd": (bwd, bwd_plain, bwd_bound, shape)}
@@ -412,39 +456,70 @@ def profile_step(run, step_ms: float) -> dict:
             "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in events[:12]]}
 
 
-def train_phases(args, rec, smi, results, stats) -> None:
-    """check_train, train and timing_train (see the module docstring). Adds
-    the train rows' checks, main-path launches and timings to ``stats``."""
-    import dataclasses
-    import gc
-    import math
+def sa1_geometries(calls):
+    """The SA1 geometries of recorded ``ball_query_group_gated`` calls, one
+    per encoder (its scales are consecutive calls on the same clouds):
+    [(xyz, new_xyz, ((radius, nsample), ...), (need, ...))]."""
+    geoms = []
+    for name, a, _kw, _g in calls:
+        if name != "ball_query_group_gated":
+            continue
+        xyz, q, r, ns, _A, need = a
+        last = geoms[-1] if geoms else None
+        if last and last[0].shape == xyz.shape and torch.equal(last[0], xyz) and torch.equal(last[1], q):
+            last[2].append((r, ns))
+            last[3].append(need)
+        else:
+            geoms.append((xyz, q, [(r, ns)], [need]))
+    return [(x, q, tuple(sc), tuple(nd)) for x, q, sc, nd in geoms]
 
-    from or4d_tpu_torch.config import NO_GT, DatasetConfig
-    from or4d_tpu_torch.data.scene_batch import SceneBatch
-    from or4d_tpu_torch.data.synthetic import make_scene_samples
-    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
-    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
-    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
-    from or4d_tpu_torch.train.loop import Trainer
 
-    t0 = time.perf_counter()
-    # labeled scenes at paper shapes, one crop per directed edge (train data)
-    samples = make_scene_samples(8, seed=args.seed + 100, n_objects=9, ds=DatasetConfig(), points_per_obj=2000)
-    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
-    emit({"phase": "train_data", "scenes": len(samples), "host_seconds": time.perf_counter() - t0})
+def bounds_bound(xyz, new_xyz, scales) -> tuple[float, str, dict]:
+    """The bounds pre-pass reads every point for every query (no early
+    stop): per pair 3 subtractions, 3 products and 2 sums, then a compare
+    and a count per scale on the FP32 pipes; the points, the queries and 2
+    floats per query and scale out once over the HBM rate."""
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    pairs = B * M * N
+    nbytes = (xyz.numel() + new_xyz.numel() + 2 * len(scales) * B * M) * 4
+    return as_bound(nbytes, pairs * (8 + 2 * len(scales)), {"pairs": pairs})
 
-    def trainer(dtype: str, device: str, seed: int) -> Trainer:
-        cfg = dataclasses.replace(NO_GT, tpu=dataclasses.replace(NO_GT.tpu, compute_dtype=dtype))
-        return Trainer(cfg, DEFAULT_VOCAB, *weights, device=device, seed=seed)
 
-    gen = lambda seed: torch.Generator().manual_seed(seed)
-    b8 = SceneBatch.stack(samples)
-    errs = stats["errs"]
+def check_bounds(geoms, errs) -> list:
+    """Row 10 on recorded SA1 geometries: the kernel against its plain
+    version, and against the FPS kernel rerun on the same clouds (its
+    centroids must be the recorded queries): need equal to counts_to_bounds'
+    and to the recorded need, total equal to the sum of the counts."""
+    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
+    from or4d_tpu_torch.ops.fps import furthest_point_sample_with_counts
+    from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
 
-    # check_train: the grouping kernels on one S=8 step's inputs and cotangents
-    tr = trainer("float32", "cuda", args.seed)
-    calls = [c for c in rec.record(lambda: tr.train_step(b8, gen(1)), rows=64) if c[0].startswith("ball_query_group")]
-    torch.cuda.synchronize()
+    checks = []
+    for xyz, q, scales, needs in geoms:
+        got = ball_query_bounds(scales, xyz, q)
+        torch.cuda.synchronize()
+        want = ball_query_bounds_plain(scales, xyz, q)
+        d = max(max_abs_diff(g, w) for gw, ww in zip(got, want) for g, w in zip(gw, ww))
+        idx, counts = furthest_point_sample_with_counts(xyz, q.shape[1], tuple(r for r, _ns in scales))
+        same_q = torch.equal(torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)), q)
+        agree = all(torch.equal(gn, fn) and torch.equal(gt, c.sum(-1)) and torch.equal(gn.int(), rn)
+                    for (gn, gt), (fn, _thr), c, rn in zip(got, counts_to_bounds(scales, counts), counts, needs))
+        ok = d == 0.0 and same_q and agree
+        checks.append({"row": "ball_query_bounds", "shape": str((tuple(xyz.shape), q.shape[1], scales)),
+                       "max_abs_err": d, "equals_fps_counts": bool(same_q and agree), "ok": ok,
+                       "max_need": float(max(g[0].max() for g in got))})
+        emit({"phase": "check_train", **checks[-1]})
+        errs["ball_query_bounds"] = max(errs.get("ball_query_bounds", 0.0), d)
+        if not ok:
+            fail(f"ball_query_bounds disagrees with its plain version or the FPS counts: {checks[-1]}")
+    return checks
+
+
+def check_group_calls(calls, errs) -> list:
+    """The grouping kernels of recorded train calls (with their cotangents)
+    against their plain versions, in float32 and bfloat16. A function of
+    its own, so the tensors it makes are freed when it returns."""
     checks = []
     for name, a, _kw, g in calls:
         if g is None:
@@ -463,115 +538,219 @@ def train_phases(args, rec, smi, results, stats) -> None:
                 errs[row] = max(errs.get(row, 0.0), d)
                 if not ok:
                     fail(f"{row} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
-    results["check_train"] = checks
-    del calls
+    return checks
 
-    # train: three steps of the main path, every train-path counter rises
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = [{k: float(v) for k, v in tr.train_step(b8, gen(2 + k)).items()} for k in range(3)]
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = launch_counts()
-    stats["launches"].update({c: launches[c] for _r, c, _s, _p in TRAIN_ROWS})
-    f1 = tr.evaluate([b8])
-    train = {"scenes": 8, "dtype": "float32", "losses": losses, "seconds": train_s, "launches": launches,
-             "macro_f1": f1}
-    missing = [c for c in ("fps.fps_counts", "fps.fps", *(r[1] for r in TRAIN_ROWS)) if launches.get(c, 0) == 0]
-    if missing:
-        fail(f"kernels not launched on the train path: {missing} ({launches})")
-    if not all(math.isfinite(v) for d in losses for v in d.values()) or not math.isfinite(f1):
-        fail(f"non-finite train losses or macro F1: {losses}, {f1}")
-    del tr
 
-    # one float32 S=1 step on the card and on the CPU: same weights and draws
-    b1 = SceneBatch.stack(samples[:1])
-    tg, tc = trainer("float32", "cuda", args.seed + 1), trainer("float32", "cpu", args.seed + 1)
-    pg = tg.train_step(b1, gen(5))
-    t0 = time.perf_counter()
-    pc = tc.train_step(b1, gen(5))
-    cpu_s = time.perf_counter() - t0
-    d_loss = max(abs(float(pg[k]) - float(pc[k])) for k in pg)
-    # differences against the model's largest gradient and parameter: a
-    # gradient that is rounding noise on both sides (a Dense bias feeding a
-    # BN) has no scale of its own, and AdamW moves every parameter by about
-    # +-lr whatever the size of its gradient
-    gscale = max(float(p.grad.abs().max()) for p in tc.model.parameters())
-    pscale = max(float(p.detach().abs().max()) for p in tc.model.parameters())
-    d_grad = d_param = 0.0
-    worst = ""
-    for (k, pgr), (_k, pcp) in zip(tg.model.named_parameters(), tc.model.named_parameters()):
-        dg = float((pgr.grad.cpu() - pcp.grad).abs().max()) / gscale
-        if dg > d_grad:
-            d_grad, worst = dg, k
-        d_param = max(d_param, float((pgr.detach().cpu() - pcp.detach()).abs().max()) / pscale)
-    train.update({"s1_loss_max_abs_diff": d_loss, "s1_grad_max_diff_of_largest": d_grad, "s1_grad_worst": worst,
-                  "s1_param_max_diff_of_largest": d_param, "cpu_reference_seconds": cpu_s})
-    results["train"] = train
-    emit({"phase": "train", **train})
-    # gradients: 1e-2 of the largest, not 1e-3: the card's and the CPU's
-    # forwards differ by ~1e-5, which flips the SA max-pool's winning slot
-    # for a few (query, channel) pairs and moves that slot's whole gradient
-    if d_loss > 1e-4 or d_grad > 1e-2 or d_param > 1e-3:
-        fail(f"S=1 float32 train step card vs CPU differs: loss {d_loss}, grad {d_grad} ({worst}), param {d_param}")
-    del tg, tc
+def add_timing(stats, row, k_ms, p_ms, b_ms, b_by) -> None:
+    for d, v in ((stats["ms"], k_ms), (stats["plain_ms"], p_ms), (stats["bound_ms"], b_ms)):
+        d[row] = d.get(row, 0.0) + v
+    stats["bound_t"][row][0 if b_by == "bytes" else 1] += b_ms
 
-    # timing_train: step time and peak memory, then each grouping kernel
-    timing = []
-    timed_calls = None
-    for dtype in ("float32", "bfloat16"):
-        for S in (8, 4, 2):
-            tt = None
-            torch.cuda.reset_peak_memory_stats()
-            try:
-                tt = trainer(dtype, "cuda", args.seed)
-                batch = SceneBatch.stack(samples[:S])
-                tt.train_step(batch, gen(11))  # warm-up
-                torch.cuda.synchronize()
-                reset_launch_counts()
-                tt.train_step(batch, gen(12))
-                torch.cuda.synchronize()
-                per_step = launch_counts()
-                reps = 3
-                t0 = time.perf_counter()
-                for k in range(reps):
-                    tt.train_step(batch, gen(13 + k))
-                torch.cuda.synchronize()
-                step_ms = 1e3 * (time.perf_counter() - t0) / reps
-                rec_ = {"card": smi, "dtype": dtype, "scenes": S, "step_ms": step_ms,
-                        "scenes_per_s": S / (step_ms / 1e3), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                        "launches_per_step": per_step}
-                if dtype == "float32":
-                    rec_["profile"] = profile_step(lambda: tt.train_step(batch, gen(19)), step_ms)
-                    timed_calls = [c for c in rec.record(lambda: tt.train_step(batch, gen(20)))
-                                   if c[0].startswith("ball_query_group")]
-                    torch.cuda.synchronize()
-                timing.append(rec_)
-                emit({"phase": "timing_train", **rec_})
-                break
-            except torch.cuda.OutOfMemoryError:
-                oom = {"card": smi, "dtype": dtype, "scenes": S, "oom": True,
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-                timing.append(oom)
-                emit({"phase": "timing_train", **oom})
-            finally:
-                tt = batch = None
-                gc.collect()
-                torch.cuda.empty_cache()
-        else:
-            fail(f"no train step fits in {dtype} at S = 8, 4 or 2")
+
+def time_group_calls(calls, smi, stats) -> list:
+    """Each recorded grouping call's kernels timed on its own inputs beside
+    their plain versions and bounds, added to ``stats``."""
     per_call = []
-    for name, a, _kw, g in timed_calls:
+    for name, a, _kw, g in calls:
         for row, (kern, plain, bnd, shape) in group_jobs(name, a, g).items():
             k_ms = cuda_ms(kern, 3)
             p_ms = cuda_ms(plain, 1)
             b_ms, b_by, info = as_bound(*bnd())
-            for d, v in ((stats["ms"], k_ms), (stats["plain_ms"], p_ms), (stats["bound_ms"], b_ms)):
-                d[row] = d.get(row, 0.0) + v
-            stats["bound_t"][row][0 if b_by == "bytes" else 1] += b_ms
+            add_timing(stats, row, k_ms, p_ms, b_ms, b_by)
             per_call.append({"row": row, "card": smi, "shape": str(shape), "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": b_ms, "bound_by": b_by, **info})
             emit({"phase": "timing_train_kernel", **per_call[-1]})
+    return per_call
+
+
+def bounds_path(calls, smi, stats) -> list:
+    """Row 10's own path on the recorded step's full SA1 geometries:
+    counters zeroed before, read after; then its timings."""
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
+
+    geoms = [(x, q, sc) for x, q, sc, _n in sa1_geometries(calls)]
+    reset_launch_counts()
+    for x, q, sc in geoms:
+        ball_query_bounds(sc, x, q)
+    torch.cuda.synchronize()
+    stats["launches"]["bounds.prepass"] = launch_counts()["bounds.prepass"]
+    per_call = []
+    for x, q, sc in geoms:
+        k_ms = cuda_ms(lambda: ball_query_bounds(sc, x, q), 3)
+        p_ms = cuda_ms(lambda: ball_query_bounds_plain(sc, x, q), 1)
+        b_ms, b_by, info = bounds_bound(x, q, sc)
+        add_timing(stats, "ball_query_bounds", k_ms, p_ms, b_ms, b_by)
+        per_call.append({"row": "ball_query_bounds", "card": smi, "shape": str((tuple(x.shape), q.shape[1], sc)),
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, **info})
+        emit({"phase": "timing_train_kernel", **per_call[-1]})
+    return per_call
+
+
+def train_phases(args, rec, smi, results, stats) -> None:
+    """check_train, train and timing_train (see the module docstring), on
+    SA1's default raw path and with ``train_raw`` false. Adds the train
+    rows' checks, main-path launches and timings to ``stats``."""
+    import dataclasses
+    import gc
+    import math
+
+    from or4d_tpu_torch.config import NO_GT, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    # labeled scenes at paper shapes, one crop per directed edge (train data)
+    samples = make_scene_samples(8, seed=args.seed + 100, n_objects=9, ds=DatasetConfig(), points_per_obj=2000)
+    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
+    emit({"phase": "train_data", "scenes": len(samples), "host_seconds": time.perf_counter() - t0})
+
+    def trainer(dtype: str, device: str, seed: int, train_raw: bool) -> Trainer:
+        tpu = dataclasses.replace(NO_GT.tpu, compute_dtype=dtype, train_raw=train_raw)
+        return Trainer(dataclasses.replace(NO_GT, tpu=tpu), DEFAULT_VOCAB, *weights, device=device, seed=seed)
+
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    b8 = SceneBatch.stack(samples)
+    errs = stats["errs"]
+    # SA1's grouping calls and counters on each path; SA2 takes row 6 on both
+    sa1_name = {True: "ball_query_group_raw", False: "ball_query_group_gated"}
+    sa1_counters = {True: ("group_raw.fwd", "group_raw.bwd"), False: ("group_gated.fwd", "group_gated.bwd")}
+
+    # check_train: the grouping kernels on one S=8 step's inputs and
+    # cotangents per path (row 6 on the raw step's), row 10 on the other's
+    checks = []
+    for train_raw in (True, False):
+        tr = trainer("float32", "cuda", args.seed, train_raw)
+        names = ("ball_query_group", sa1_name[True]) if train_raw else (sa1_name[False],)
+        calls = [c for c in rec.record(lambda: tr.train_step(b8, gen(1)), rows=64) if c[0] in names]
+        torch.cuda.synchronize()
+        del tr
+        checks += check_group_calls(calls, errs)
+        if not train_raw:
+            checks += check_bounds(sa1_geometries(calls), errs)
+        del calls
+    results["check_train"] = checks
+
+    # train: three steps of each path's main path, its counters rise and
+    # the other path's SA1 counters do not; then S=1 card vs CPU
+    b1 = SceneBatch.stack(samples[:1])
+    for train_raw in (True, False):
+        tr = trainer("float32", "cuda", args.seed, train_raw)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [{k: float(v) for k, v in tr.train_step(b8, gen(2 + k)).items()} for k in range(3)]
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = TRAIN_ROWS if train_raw else GATED_ROWS
+        stats["launches"].update({c: launches[c] for _r, c, _s, _p in rows})
+        f1 = tr.evaluate([b8])
+        train = {"scenes": 8, "dtype": "float32", "train_raw": train_raw, "losses": losses, "seconds": train_s,
+                 "launches": launches, "macro_f1": f1}
+        missing = [c for c in ("fps.fps_counts", "fps.fps", "group.fwd", "group.bwd", *sa1_counters[train_raw])
+                   if launches.get(c, 0) == 0]
+        stray = [c for c in sa1_counters[not train_raw] if launches.get(c, 0) != 0]
+        if missing or stray:
+            fail(f"train_raw={train_raw}: kernels not launched {missing}, other path's kernels launched {stray} "
+                 f"({launches})")
+        if not all(math.isfinite(v) for d in losses for v in d.values()) or not math.isfinite(f1):
+            fail(f"non-finite train losses or macro F1: {losses}, {f1}")
+        del tr
+
+        # one float32 S=1 step on the card and on the CPU: same weights and draws
+        tg, tc = (trainer("float32", dev, args.seed + 1, train_raw) for dev in ("cuda", "cpu"))
+        pg = tg.train_step(b1, gen(5))
+        t0 = time.perf_counter()
+        pc = tc.train_step(b1, gen(5))
+        cpu_s = time.perf_counter() - t0
+        d_loss = max(abs(float(pg[k]) - float(pc[k])) for k in pg)
+        # differences against the model's largest gradient and parameter: a
+        # gradient that is rounding noise on both sides (a Dense bias feeding a
+        # BN) has no scale of its own, and AdamW moves every parameter by about
+        # +-lr whatever the size of its gradient
+        gscale = max(float(p.grad.abs().max()) for p in tc.model.parameters())
+        pscale = max(float(p.detach().abs().max()) for p in tc.model.parameters())
+        d_grad = d_param = 0.0
+        worst = ""
+        for (k, pgr), (_k, pcp) in zip(tg.model.named_parameters(), tc.model.named_parameters()):
+            dg = float((pgr.grad.cpu() - pcp.grad).abs().max()) / gscale
+            if dg > d_grad:
+                d_grad, worst = dg, k
+            d_param = max(d_param, float((pgr.detach().cpu() - pcp.detach()).abs().max()) / pscale)
+        train.update({"s1_loss_max_abs_diff": d_loss, "s1_grad_max_diff_of_largest": d_grad,
+                      "s1_grad_worst": worst, "s1_param_max_diff_of_largest": d_param, "cpu_reference_seconds": cpu_s})
+        results["train" if train_raw else "train_raw_false"] = train
+        emit({"phase": "train", **train})
+        # gradients: 1e-2 of the largest, not 1e-3: the card's and the CPU's
+        # forwards differ by ~1e-5, which flips the SA max-pool's winning slot
+        # for a few (query, channel) pairs and moves that slot's whole gradient
+        if d_loss > 1e-4 or d_grad > 1e-2 or d_param > 1e-3:
+            fail(f"S=1 float32 train step (train_raw={train_raw}) card vs CPU differs: loss {d_loss}, "
+                 f"grad {d_grad} ({worst}), param {d_param}")
+        del tg, tc
+
+    # timing_train: step time and peak memory per path and dtype, then each
+    # SA1 path's grouping kernels on its float32 step's own inputs
+    timing = []
+    per_call = []
+
+    for train_raw in (True, False):
+        timed_calls = None
+        for dtype in ("float32", "bfloat16"):
+            for S in (8, 4, 2):
+                tt = None
+                torch.cuda.reset_peak_memory_stats()
+                try:
+                    tt = trainer(dtype, "cuda", args.seed, train_raw)
+                    batch = SceneBatch.stack(samples[:S])
+                    tt.train_step(batch, gen(11))  # warm-up
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    tt.train_step(batch, gen(12))
+                    torch.cuda.synchronize()
+                    per_step = launch_counts()
+                    reps = 3
+                    t0 = time.perf_counter()
+                    for k in range(reps):
+                        tt.train_step(batch, gen(13 + k))
+                    torch.cuda.synchronize()
+                    step_ms = 1e3 * (time.perf_counter() - t0) / reps
+                    rec_ = {"card": smi, "train_raw": train_raw, "dtype": dtype, "scenes": S, "step_ms": step_ms,
+                            "scenes_per_s": S / (step_ms / 1e3), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                            "launches_per_step": per_step}
+                    if dtype == "float32":
+                        rec_["profile"] = profile_step(lambda: tt.train_step(batch, gen(19)), step_ms)
+                        # rows 5 and 6 from the raw step; row 9 from the other
+                        names = ("ball_query_group", sa1_name[True]) if train_raw else (sa1_name[False],)
+                        timed_calls = [c for c in rec.record(lambda: tt.train_step(batch, gen(20))) if c[0] in names]
+                        torch.cuda.synchronize()
+                    timing.append(rec_)
+                    emit({"phase": "timing_train", **rec_})
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    oom = {"card": smi, "train_raw": train_raw, "dtype": dtype, "scenes": S, "oom": True,
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+                    timing.append(oom)
+                    emit({"phase": "timing_train", **oom})
+                finally:
+                    tt = batch = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            else:
+                fail(f"no train step (train_raw={train_raw}) fits in {dtype} at S = 8, 4 or 2")
+            if dtype != "float32":
+                continue
+            # the kernels on the float32 step's inputs, freed before bfloat16
+            per_call += time_group_calls(timed_calls, smi, stats)
+            if not train_raw:
+                per_call += bounds_path(timed_calls, smi, stats)
+            timed_calls = None
+            gc.collect()
+            torch.cuda.empty_cache()
     results["timing_train"] = {"steps": timing, "per_call": per_call}
 
 
@@ -970,7 +1149,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     per_call = []
     kern_ms, plain_ms, bound_ms = {}, {}, {}
-    bound_t = {r[0]: [0.0, 0.0] for r in ROWS + TRAIN_ROWS + SERVING_ROWS}  # bytes time, operations time
+    bound_t = {r[0]: [0.0, 0.0] for r in ROWS + TRAIN_ROWS + GATED_ROWS + BOUNDS_ROWS + SERVING_ROWS}  # bytes, ops time
     for name, cargs, ckw, _g in calls:
         row = row_of(name, ckw)
         k_ms = cuda_ms(lambda: run_call(name, cargs, ckw, plain=False), 5)
@@ -985,14 +1164,16 @@ def main(argv=None) -> int:
         emit({"phase": "timing_kernel", **per_call[-1]})
     results["timing"] = {"e2e": e2e, "per_call": per_call}
     torch.set_grad_enabled(True)
+    # the last recorded call's tensors too, before the train phases read peak memory
     del calls, bS, pS, out, model_bf16, m_gpu, m_cpu, out_gpu, out_cpu
+    cargs = ckw = None
     torch.cuda.empty_cache()
 
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_t": bound_t}
     train_phases(args, rec, smi, results, stats)
     serving_phases(args, rec, smi, results, stats)
-    rows = ROWS + TRAIN_ROWS + SERVING_ROWS
+    rows = ROWS + TRAIN_ROWS + SERVING_ROWS + GATED_ROWS + BOUNDS_ROWS
     unmeasured = [r[0] for r in rows if r[0] not in errs or r[0] not in kern_ms]
     if unmeasured:
         fail(f"kernels with no check or no timing in this run: {unmeasured}")

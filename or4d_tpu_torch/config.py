@@ -9,7 +9,7 @@ the execution knobs the reference never had (padding maxima, precision).
 
 A copy of the config classes of ``or4d_tpu/config.py`` for the PyTorch port,
 which imports nothing of the JAX package. Of the TPU execution knobs only the
-two that change results are kept.
+three that change results are kept.
 """
 
 from __future__ import annotations
@@ -104,11 +104,21 @@ class DatasetConfig:
 @dataclasses.dataclass(frozen=True)
 class TPUConfig:
     """Execution knobs of the reference package that change results: the
-    scene batch and the compute dtype. (Its sort, gate and layout knobs only
-    change speed on a TPU and have no counterpart here.)"""
+    scene batch, the compute dtype and ``train_raw``.
+
+    ``train_raw`` picks SA1's train grouping on supports wider than one
+    512-point chunk: True groups rows built from the raw [xyz|features]
+    plane (TPU row 5; W0's gradient accumulated in f32 inside the kernel,
+    no gradient to the input features), False groups rows of the layer-1
+    plane A (TPU row 9; dA rounded to the compute dtype before
+    dW0 = x^T @ dA, and the features get their gradient through A). Its
+    sort, gate and packing knobs (``packed_slots``, ``per_scale_sort``,
+    ``eval_subtile``, ``train_per_scale_sort``) only change speed on a TPU
+    and have no counterpart here."""
 
     scene_batch: int = 8           # scenes per global step (reference: 1)
     compute_dtype: str = "float32"  # "bfloat16" for the matmul-heavy path
+    train_raw: bool = True         # or4d_tpu/config.py:172
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,12 +22,18 @@ encoder's paired mode runs SA1 once per unordered pair and emits both
 directions.
 
 Training keeps exact masked batch statistics, so each scale's grouped
-layer-1 rows come out of a grouping kernel with a backward
-(:mod:`or4d_tpu_torch.ops.ball_query_group_raw` from the raw plane for
-supports wider than one chunk, whose features are model inputs;
-:mod:`or4d_tpu_torch.ops.ball_query_group` from a layer-1 plane otherwise),
-and ``DelayedSharedMLP.post`` runs BN/ReLU and the second layer on them in
-PyTorch before the max over the slots.
+layer-1 rows come out of a grouping kernel with a backward, and
+``DelayedSharedMLP.post`` runs BN/ReLU and the second layer on them in
+PyTorch before the max over the slots. Supports wider than one chunk (SA1)
+take the FPS kernel's hit counts as search bounds and, with ``train_raw``
+(the default), group rows built from the raw plane
+(:func:`~or4d_tpu_torch.ops.ball_query_group_raw.ball_query_group_raw`, W0's
+gradient only: their features are model inputs); without it, rows of the
+layer-1 plane A (:func:`~or4d_tpu_torch.ops.ball_query_group.ball_query_group_gated`,
+dA, so the features get their gradient through A). Narrower supports (SA2)
+group rows of A with
+:func:`~or4d_tpu_torch.ops.ball_query_group.ball_query_group`. The encoder
+sets ``train_raw`` on SA1 only.
 
 Serving mode (:mod:`or4d_tpu_torch.serving`) hands SA1 a cache of its
 weight-independent geometry (FPS centroids and the grouped [p_abs | f]
@@ -45,7 +51,7 @@ import torch
 from torch import nn
 
 from or4d_tpu_torch.models.layers import Dense, MaskedBatchNorm, SharedMLP
-from or4d_tpu_torch.ops.ball_query_group import ball_query_group
+from or4d_tpu_torch.ops.ball_query_group import ball_query_group, ball_query_group_gated
 from or4d_tpu_torch.ops.ball_query_group_raw import ball_query_group_raw
 from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
@@ -129,15 +135,18 @@ class SetAbstractionMSG(nn.Module):
     takes batch statistics over the rows that ``mask`` (B,) marks valid.
     With ``cache`` (a serving ``SA1Cache``, eval only) ``xyz`` and
     ``features`` are not read: the cached centroids and planes stand in for
-    FPS and the ball query.
+    FPS and the ball query. ``train_raw`` picks the train grouping on
+    supports wider than one chunk (see the module docstring); it is exact
+    for parameter training only where the features are model inputs.
     """
 
     def __init__(self, in_features: int, npoint: int, scales: Sequence[SAScale], dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, train_raw: bool = True):
         super().__init__()
         self.npoint = npoint
         self.scales = tuple(scales)
         self.dtype = dtype
+        self.train_raw = train_raw
         for si, sc in enumerate(self.scales):
             self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
 
@@ -198,24 +207,28 @@ class SetAbstractionMSG(nn.Module):
     def _train_forward(self, xyz, features, mask):
         """Per scale: grouped layer-1 rows from a grouping kernel, then
         ``post`` and the max over the slots. Supports wider than one chunk
-        group from the raw [xyz|features] plane (W0's gradient only; their
-        features are model inputs) with the FPS counts as search bounds."""
+        search within the FPS counts' bounds and group from the raw
+        [xyz|features] plane (``train_raw``) or from the layer-1 plane."""
         N = xyz.shape[1]
         radii = tuple(sc.radius for sc in self.scales)
-        if N > CHUNK:
+        wide = N > CHUNK
+        if wide:
             idx, counts = furthest_point_sample_with_counts(xyz, self.npoint, radii)
             scale_spec = tuple((sc.radius, sc.nsample) for sc in self.scales)
             needs = [need.int().contiguous() for need, _thr in counts_to_bounds(scale_spec, counts)]
-            parts = [xyz] + ([] if features is None else [features.to(xyz.dtype)])
-            raw = torch.cat(parts, dim=-1).to(self.dtype).transpose(1, 2).contiguous()  # (B, C0, N)
         else:
             idx = furthest_point_sample(xyz, self.npoint)
+        if wide and self.train_raw:
+            parts = [xyz] + ([] if features is None else [features.to(xyz.dtype)])
+            raw = torch.cat(parts, dim=-1).to(self.dtype).transpose(1, 2).contiguous()  # (B, C0, N)
         new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
         outs = []
         for si, sc in enumerate(self.scales):
             m = getattr(self, f"mlp_{si}")
-            if N > CHUNK:
+            if wide and self.train_raw:
                 g = ball_query_group_raw(xyz, new_xyz, sc.radius, sc.nsample, m.w0_matrix(), raw, needs[si])
+            elif wide:
+                g = ball_query_group_gated(xyz, new_xyz, sc.radius, sc.nsample, m.pre(xyz, features), needs[si])
             else:
                 g = ball_query_group(xyz, new_xyz, sc.radius, sc.nsample, m.pre(xyz, features))
             outs.append(m.post(g, m.bq_term(new_xyz), mask, train=True).amax(dim=2))
@@ -249,21 +262,25 @@ class PointNet2MSGEncoder(nn.Module):
 
     ``sa1_cache`` (serving, eval, unpaired): SA1 runs on the cached geometry
     and ``pc`` is not read (it may be None).
+
+    ``train_raw`` is SA1's (its features are model inputs); SA2's features
+    carry gradients, so SA2 always groups from its layer-1 plane.
     """
 
     def __init__(self, input_dim: int = 6, out_size: int = 256, sa_npoints=(512, 128),
-                 sa_nsamples=((16, 32), (32, 64)), dtype=torch.float32, device=None, generator=None):
+                 sa_nsamples=((16, 32), (32, 64)), dtype=torch.float32, device=None, generator=None,
+                 train_raw: bool = True):
         super().__init__()
         self.sa1 = SetAbstractionMSG(
             input_dim, sa_npoints[0],
             (SAScale(SA1_RADII[0], sa_nsamples[0][0], (64, 64)), SAScale(SA1_RADII[1], sa_nsamples[0][1], (64, 128))),
-            dtype, device, generator,
+            dtype, device, generator, train_raw=train_raw,
         )
         c1 = 64 + 128
         self.sa2 = SetAbstractionMSG(
             3 + c1, sa_npoints[1],
             (SAScale(SA2_RADII[0], sa_nsamples[1][0], (128, 128)), SAScale(SA2_RADII[1], sa_nsamples[1][1], (128, 128))),
-            dtype, device, generator,
+            dtype, device, generator, train_raw=False,
         )
         self.sa3 = SetAbstractionAll(3 + 256, (256, out_size), dtype, device, generator)
 

@@ -46,12 +46,15 @@ class SGPNOutputs:
 class SGPN(nn.Module):
     """Parameters are made on the CPU from ``generator`` (seeded by ``seed``
     when none is given) and moved to ``device`` (default ``cuda``; raises
-    without a card unless ``device="cpu"``)."""
+    without a card unless ``device="cpu"``). ``train_raw`` picks both
+    encoders' SA1 train grouping (``TPUConfig.train_raw``; see
+    :mod:`or4d_tpu_torch.models.pointnet2`)."""
 
     def __init__(self, num_classes: int = 12, num_relations: int = 15, point_feature_size: int = 256,
                  edge_feature_size: int = 256, gcn_hidden: int = 512, gcn_layers: int = 2,
                  obj_pred_from_gcn: bool = True, compute_dtype=torch.float32, sa_npoints=(512, 128),
-                 sa_nsamples=((16, 32), (32, 64)), device=None, generator: torch.Generator | None = None, seed: int = 0):
+                 sa_nsamples=((16, 32), (32, 64)), device=None, generator: torch.Generator | None = None, seed: int = 0,
+                 train_raw: bool = True):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -61,7 +64,7 @@ class SGPN(nn.Module):
         self.edge_feature_size = edge_feature_size
         self.obj_pred_from_gcn = obj_pred_from_gcn
         enc = dict(sa_npoints=tuple(sa_npoints), sa_nsamples=tuple(tuple(s) for s in sa_nsamples),
-                   dtype=compute_dtype, device=device, generator=generator)
+                   dtype=compute_dtype, device=device, generator=generator, train_raw=train_raw)
         # xyz + rgb object crops; xyz + rgb + subject/object mask relation crops
         self.obj_encoder = PointNet2MSGEncoder(6, point_feature_size, **enc)
         self.rel_encoder = PointNet2MSGEncoder(7, edge_feature_size, **enc)
@@ -84,6 +87,7 @@ class SGPN(nn.Module):
             compute_dtype=torch.bfloat16 if cfg.tpu.compute_dtype == "bfloat16" else torch.float32,
             sa_npoints=tuple(cfg.model.sa_npoints),
             sa_nsamples=tuple(tuple(s) for s in cfg.model.sa_nsamples),
+            train_raw=cfg.tpu.train_raw,
             **kw,
         )
 

@@ -1,19 +1,23 @@
 """Point-cloud ops of the port: FPS, the fused eval SA stage, the train
-grouping with its backward, and the serving path's multi-scale ball query
-and SA1 MLP on cached planes (each a CUDA kernel beside its plain PyTorch
-version), and the plain index ball query.
+grouping with its backward (plane mode, plane mode with the FPS bound, raw
+mode), the serving path's multi-scale ball query and SA1 MLP on cached
+planes, and the bounds pre-pass (each a CUDA kernel beside its plain
+PyTorch version), and the plain index ball query.
 
-Every kernel wrapper counts its launches in its module's ``LAUNCHES`` dict;
+Every kernel wrapper counts its launches in its module's ``LAUNCHES`` dict
+(``ball_query_group_gated`` in ``ball_query_group.LAUNCHES_GATED``);
 :func:`launch_counts` and :func:`reset_launch_counts` read and zero them all,
 so a run can show that a path went through the kernels.
 """
 
-from or4d_tpu_torch.ops import (ball_query_group, ball_query_group_raw, ball_query_multiscale, fps, sa_group_mlp,
-                                serving_sa1_mlp)
+from or4d_tpu_torch.ops import (ball_query_bounds, ball_query_group, ball_query_group_raw, ball_query_multiscale,
+                                fps, sa_group_mlp, serving_sa1_mlp)
 
 _COUNTERS = {"fps": fps.LAUNCHES, "sa_group_mlp": sa_group_mlp.LAUNCHES,
-             "group": ball_query_group.LAUNCHES, "group_raw": ball_query_group_raw.LAUNCHES,
-             "ball_query": ball_query_multiscale.LAUNCHES, "serving_sa1": serving_sa1_mlp.LAUNCHES}
+             "group": ball_query_group.LAUNCHES, "group_gated": ball_query_group.LAUNCHES_GATED,
+             "group_raw": ball_query_group_raw.LAUNCHES,
+             "ball_query": ball_query_multiscale.LAUNCHES, "serving_sa1": serving_sa1_mlp.LAUNCHES,
+             "bounds": ball_query_bounds.LAUNCHES}
 
 
 def launch_counts() -> dict[str, int]:

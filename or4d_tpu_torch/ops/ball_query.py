@@ -20,10 +20,12 @@ import torch
 _CHUNK_ELEMS = 1 << 26  # (clouds, M, N) elements per chunk
 
 
-def ball_query_with_counts(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+def ball_query_with_counts(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                           limit: torch.Tensor | None = None):
     """(idx (B, M, nsample) int64, total (B, M) int64 hit counts).
 
-    A query with no hit gets index 0 in every slot (its ``total`` is 0)."""
+    A query with no hit gets index 0 in every slot (its ``total`` is 0).
+    ``limit`` (B, M): each query scans only its first ``limit`` points."""
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
     r2 = float(np.float32(radius * radius))
@@ -37,6 +39,8 @@ def ball_query_with_counts(radius: float, nsample: int, xyz: torch.Tensor, new_x
         dy = q[..., 1] - p[..., 1]
         dz = q[..., 2] - p[..., 2]
         hit = (dx * dx + dy * dy + dz * dz) < r2  # (b, M, N)
+        if limit is not None:
+            hit &= pos < limit[b0 : b0 + step, :, None]
         # hits sort first, in scan order; misses after them
         key = torch.where(hit, pos, pos + N)
         k = min(nsample, N)

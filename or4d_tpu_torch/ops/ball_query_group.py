@@ -1,10 +1,19 @@
 """Train-path grouping on a layer-1 plane: the CUDA kernels of
 ``csrc/ball_query_group.cu`` (plane mode) and their plain PyTorch versions.
 
-Replaces ``ball_query_group_pallas`` (or4d_tpu/ops/pallas_ball_query.py:295)
-and its custom VJP (:408-422), one (radius, nsample) scale per call. What
-bounds the kernels on the H100 and what their design does about it is in
-the header of ``csrc/ball_query_group.cu``.
+Replaces, one (radius, nsample) scale per call:
+  * ``ball_query_group_pallas`` (or4d_tpu/ops/pallas_ball_query.py:295) and
+    its custom VJP (:408-422): :func:`ball_query_group`, SA2's grouping;
+  * ``ball_query_group_pallas_gated`` (pallas_ball_query.py:1563; forward
+    :1591, backward :1656, VJP :1717-1739): :func:`ball_query_group_gated`,
+    SA1's grouping when ``TPUConfig.train_raw`` is false. It takes the FPS
+    counts' chunk bound ``need`` (B, M), which stops each query's search at
+    need*512 points and never changes results, and counts its launches
+    apart (``LAUNCHES_GATED``). The TPU function's slot-major and slot-pair
+    packed outputs and its query sort are TPU layout: its outputs here are
+    query-major like the other grouping functions'.
+What bounds the kernels on the H100 and what their design does about it is
+in the header of ``csrc/ball_query_group.cu``.
 
 Forward: for each query, the first ``nsample`` support points within
 ``radius`` in scan order (first-hit fill), their rows of A (B, N, C) copied
@@ -28,13 +37,26 @@ import numpy as np
 import torch
 
 from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+from or4d_tpu_torch.ops.fps import CHUNK
 
-# kernel launches: "fwd" (search + grouped rows) and "bwd" (dA)
+# kernel launches: "fwd" (search + grouped rows) and "bwd" (dA), for
+# ball_query_group (TPU row 6) and for ball_query_group_gated (row 9)
 LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES_GATED = {"fwd": 0, "bwd": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_NS = 127
-_MAX_C, _MAX_M = 256, 1024
+_MAX_C = 256
+# the backward keeps one cloud's inverse in shared memory: at most the
+# H100's 227 KB per block, less the kernel's 64 static bytes
+_MAX_BWD_SMEM = 227 * 1024 - 64
+
+
+def bwd_smem_bytes(N: int, M: int, nsample: int) -> int:
+    """Shared memory of the backward kernel's per-cloud inverse: per point a
+    count and a list start (+1), per query its real slots, one entry per
+    slot (4 bytes each)."""
+    return 4 * (2 * N + 1 + M + M * nsample)
 
 
 def r2_of(radius: float) -> float:
@@ -42,10 +64,12 @@ def r2_of(radius: float) -> float:
     return float(np.float32(radius * radius))
 
 
-def group_indices_plain(xyz, new_xyz, radius: float, nsample: int) -> torch.Tensor:
+def group_indices_plain(xyz, new_xyz, radius: float, nsample: int, need=None) -> torch.Tensor:
     """(B, M, nsample) int32 hit indices in scan order, filled with the
-    first hit; -1 in every slot of a query with no hit."""
-    idx, total = ball_query_with_counts(radius, nsample, xyz, new_xyz)
+    first hit; -1 in every slot of a query with no hit. ``need`` (B, M):
+    each query scans only its first need*512 points."""
+    limit = None if need is None else need.long() * CHUNK
+    idx, total = ball_query_with_counts(radius, nsample, xyz, new_xyz, limit)
     return torch.where((total > 0)[..., None], idx, -1).int()
 
 
@@ -96,9 +120,9 @@ def _device_type(xyz: torch.Tensor, name: str) -> str:
     return xyz.device.type
 
 
-def group_fwd_plain(xyz, new_xyz, radius: float, nsample: int, A):
+def group_fwd_plain(xyz, new_xyz, radius: float, nsample: int, A, need=None):
     """The plain forward: (out (B, M, nsample, C) in A's dtype, idx)."""
-    idx = group_indices_plain(xyz, new_xyz, radius, nsample)
+    idx = group_indices_plain(xyz, new_xyz, radius, nsample, need)
     return gather_rows(A, idx), idx
 
 
@@ -107,8 +131,10 @@ def group_bwd_plain(idx, g, N: int) -> torch.Tensor:
     return scatter_rows(idx, g, N).to(g.dtype)
 
 
-def group_fwd(xyz, new_xyz, radius: float, nsample: int, A):
-    """(out, idx): the kernel for CUDA tensors, the plain version on the CPU."""
+def group_fwd(xyz, new_xyz, radius: float, nsample: int, A, need=None, launches=LAUNCHES):
+    """(out, idx): the kernel for CUDA tensors, the plain version on the CPU.
+    ``need`` (B, M) int32 chunk bounds or None; a launch counts in
+    ``launches``."""
     _check_geometry(xyz, new_xyz, nsample)
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
@@ -116,8 +142,10 @@ def group_fwd(xyz, new_xyz, radius: float, nsample: int, A):
         raise ValueError(f"A must be (B, N, C) float32 or bfloat16, got {tuple(A.shape)} {A.dtype}")
     C = A.shape[-1]
     _check(A, "A", (B, N, C), A.dtype, xyz.device)
+    if need is not None:
+        _check(need, "need", (B, M), torch.int32, xyz.device)
     if _device_type(xyz, "ball_query_group") == "cpu":
-        return group_fwd_plain(xyz, new_xyz, radius, nsample, A)
+        return group_fwd_plain(xyz, new_xyz, radius, nsample, A, need)
     if C > _MAX_C:
         raise ValueError(f"ball_query_group kernel takes C <= {_MAX_C}, got {C}")
     from or4d_tpu_torch.ops._build import library
@@ -130,18 +158,18 @@ def group_fwd(xyz, new_xyz, radius: float, nsample: int, A):
     idx = torch.empty(B, M, nsample, dtype=torch.int32, device=A.device)
     if B > 0 and M > 0:
         with torch.cuda.device(A.device):
-            err = fn(DTYPES[A.dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample, None,
-                     A.data_ptr(), None, None, 0, C, out.data_ptr(), idx.data_ptr(),
-                     torch.cuda.current_stream(A.device).cuda_stream)
+            err = fn(DTYPES[A.dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample,
+                     None if need is None else need.data_ptr(), A.data_ptr(), None, None, 0, C, out.data_ptr(),
+                     idx.data_ptr(), torch.cuda.current_stream(A.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"ball_query_group forward kernel launch failed: CUDA error {err}")
-        LAUNCHES["fwd"] += 1
+        launches["fwd"] += 1
     return out, idx
 
 
-def group_bwd(idx, g, N: int) -> torch.Tensor:
+def group_bwd(idx, g, N: int, launches=LAUNCHES) -> torch.Tensor:
     """dA (B, N, C) in g's dtype: the kernel for CUDA tensors, the plain
-    version on the CPU."""
+    version on the CPU; a launch counts in ``launches``."""
     if g.dtype not in DTYPES or g.dim() != 4:
         raise ValueError(f"g must be (B, M, ns, C) float32 or bfloat16, got {tuple(g.shape)} {g.dtype}")
     B, M, ns, C = g.shape
@@ -149,8 +177,9 @@ def group_bwd(idx, g, N: int) -> torch.Tensor:
     _check(idx, "idx", (B, M, ns), torch.int32, g.device)
     if _device_type(g, "ball_query_group backward") == "cpu":
         return group_bwd_plain(idx, g, N)
-    if C > _MAX_C or M > _MAX_M or ns > MAX_NS:
-        raise ValueError(f"ball_query_group backward kernel takes C <= {_MAX_C}, M <= {_MAX_M}, ns <= {MAX_NS}")
+    if C > _MAX_C or ns > MAX_NS or bwd_smem_bytes(N, M, ns) > _MAX_BWD_SMEM:
+        raise ValueError(f"ball_query_group backward kernel takes C <= {_MAX_C}, ns <= {MAX_NS} and "
+                         f"4 * (2N + 1 + M + M*ns) <= {_MAX_BWD_SMEM} bytes; got C={C}, N={N}, M={M}, ns={ns}")
     from or4d_tpu_torch.ops._build import library
 
     fn = library("ball_query_group").or4d_group_bwd
@@ -164,7 +193,7 @@ def group_bwd(idx, g, N: int) -> torch.Tensor:
                      torch.cuda.current_stream(g.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"ball_query_group backward kernel launch failed: CUDA error {err}")
-        LAUNCHES["bwd"] += 1
+        launches["bwd"] += 1
     elif N > 0:
         dA.zero_()
     return dA
@@ -172,20 +201,28 @@ def group_bwd(idx, g, N: int) -> torch.Tensor:
 
 class _GroupFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, A, xyz, new_xyz, radius, nsample):
-        out, idx = group_fwd(xyz, new_xyz, radius, nsample, A)
+    def forward(ctx, A, xyz, new_xyz, radius, nsample, need, launches):
+        out, idx = group_fwd(xyz, new_xyz, radius, nsample, A, need, launches)
         ctx.save_for_backward(idx)
-        ctx.N = A.shape[1]
+        ctx.N, ctx.launches = A.shape[1], launches
         return out
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return group_bwd(idx, g.contiguous(), ctx.N), None, None, None, None
+        return group_bwd(idx, g.contiguous(), ctx.N, ctx.launches), None, None, None, None, None, None
 
 
 def ball_query_group(xyz, new_xyz, radius: float, nsample: int, A) -> torch.Tensor:
     """Grouped layer-1 rows (B, M, nsample, C) in A's dtype, differentiable
     in ``A`` (B, N, C). ``xyz`` (B, N, 3) and ``new_xyz`` (B, M, 3) are
     float32 geometry."""
-    return _GroupFunction.apply(A, xyz, new_xyz, float(radius), int(nsample))
+    return _GroupFunction.apply(A, xyz, new_xyz, float(radius), int(nsample), None, LAUNCHES)
+
+
+def ball_query_group_gated(xyz, new_xyz, radius: float, nsample: int, A, need) -> torch.Tensor:
+    """:func:`ball_query_group` with the chunk bound ``need`` (B, M) int32
+    from the FPS kernel's counts (``counts_to_bounds``): the same rows and
+    the same dA, the search of each query cut at need*512 points. SA1's
+    train grouping when ``train_raw`` is false (TPU row 9)."""
+    return _GroupFunction.apply(A, xyz, new_xyz, float(radius), int(nsample), need, LAUNCHES_GATED)

@@ -3,9 +3,12 @@
 //
 // Replaces the TPU kernels
 //   * `ball_query_group_pallas` (or4d_tpu/ops/pallas_ball_query.py:295;
-//     fwd kernel :194, bwd kernel :236): plane mode. Forward copies rows of a
-//     precomputed layer-1 plane A (B, N, C); backward scatter-adds the
-//     cotangent into dA (B, N, C), summed in f32 and rounded to g's dtype.
+//     fwd kernel :194, bwd kernel :236) and `ball_query_group_pallas_gated`
+//     (pallas_ball_query.py:1563; fwd :1591, pallas_call :1641; bwd :1656,
+//     pallas_call :1699): plane mode. Forward copies rows of a precomputed
+//     layer-1 plane A (B, N, C), the gated one within the FPS counts' bound
+//     `need`; backward scatter-adds the cotangent into dA (B, N, C), summed
+//     in f32 and rounded to g's dtype.
 //   * `ball_query_group_pallas_gated_raw` (pallas_ball_query.py:1743; fwd
 //     kernel :1215 with from_raw, bwd kernel :1406 with from_raw): raw mode.
 //     Forward builds each grouped row in-kernel as
@@ -19,11 +22,12 @@
 // d2 < r2 in scan order, d2 = (dx*dx + dy*dy) + dz*dz with each operation
 // rounded on its own and r2 the f32 of r*r; slots past the last hit repeat
 // the first hit (first-hit fill); a query with no hit gets zero rows and
-// passes no gradient. With `need` (B, M) (raw mode; chunk counts from the
-// FPS kernel's hit counts) the search stops at need*512 points, an exact
-// bound. Outputs are query-major (B, M, ns, C); the TPU's slot-major and
-// slot-pair packed layouts, query sort and sub-tile gates change only speed
-// on a TPU and are not carried over.
+// passes no gradient. With `need` (B, M) (chunk counts from the FPS
+// kernel's hit counts: raw mode, and the gated plane mode) the search stops
+// at need*512 points, an exact bound. Outputs are query-major
+// (B, M, ns, C); the TPU's slot-major and slot-pair packed layouts, query
+// sort and sub-tile gates change only speed on a TPU and are not carried
+// over.
 //
 // Autograd residual: the forward saves the hit indices (B, M, ns) int32 with
 // the fill applied and -1 in every slot of a query with no hit (4 bytes per
@@ -40,12 +44,25 @@
 //     mode keeps W0 (C0 x C <= 8 x 128) in shared memory as f32 and reads the
 //     C0 raw values of a hit once per slot.
 //   * plane backward: bytes (g read once, dA written once). Deterministic,
-//     no atomics: one block per (cloud, tile of 128 support points) builds
-//     the inverse of the saved indices in shared memory, inv[n][m] = the real
-//     slot of point n in query m's list (one byte each), and one warp per
-//     support point sums the cotangent rows that reach it in (query, slot)
-//     order: a real hit, then, for a first hit, the query's filled slots.
-//     That is the order of a sequential scatter over the flattened slots.
+//     no atomics in the sums: one block per cloud builds the inverse of its
+//     saved indices once in shared memory, as a list per support point
+//     (count with shared atomics, exclusive scan, fill), puts each list in
+//     query order (its entries are distinct queries; a rank sort in
+//     registers, or one lane past 32 entries), and one warp per support
+//     point sums the cotangent rows that reach it in (query, slot) order: a
+//     real hit, then, for a first hit, the query's filled slots. That is the
+//     order of a sequential scatter over the flattened slots; the atomics
+//     only count and place, the sort makes the order. The scan of the saved
+//     indices is one coalesced pass, a thread per slot: a slot is real when
+//     it is slot 0 or differs from slot 0 (real hits are distinct and come
+//     first; filled slots repeat the first hit). The sum keeps up to four
+//     cotangent rows in flight per warp (loads first, then the adds in
+//     order): one row at a time leaves the warp waiting on each load. The
+//     lists take (2N + 1 + M + M*ns) ints, 131.6 KB for an SA1 cloud (N
+//     8000, M 512, ns 32); shapes whose lists do not fit are refused. A block
+//     per cloud, not per tile of its points: per-tile blocks each rescan
+//     the cloud's M*ns slots and clear a (point, query) table, 7x the bytes
+//     bound on SA1 on an H100.
 //   * raw backward: the C0 x C product per slot (f32 FMAs) and the g bytes.
 //     One block per cloud accumulates a C0 x C tile in registers (lane =
 //     channel, C0 <= 8 rows), warps summed in fixed order into one partial
@@ -63,11 +80,10 @@ constexpr int kMaxCL = 8;  // channels per lane: C <= 256
 constexpr int kMaxC = 32 * kMaxCL;
 constexpr int kMaxRawCL = 4;  // raw mode: C <= 128
 constexpr int kMaxRawC = 32 * kMaxRawCL;
-constexpr int kMaxNs = 127;  // slots fit the backward's one-byte inverse table
+constexpr int kMaxNs = 127;  // a slot fits the 7 bits of a backward list entry
 constexpr int kMaxC0 = 8;
-constexpr int kMaxM = 1024;
 constexpr int kChunk = 512;
-constexpr int kTileN = 128;  // support points per plane-backward block
+constexpr int kBwdThreads = 512;  // plane backward: threads per cloud
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -79,7 +95,10 @@ __device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+// plane backward: dynamic shared memory of one cloud's inverse, as ints:
+// per point a count and a list start (+1), per query its real slots, and
+// one entry per slot
+inline size_t bwd_smem(int N, int M, int ns) { return sizeof(int) * ((size_t)2 * N + 1 + M + (size_t)M * ns); }
 
 struct FwdArgs {
   const float* xyz;      // (B, N, 3)
@@ -172,71 +191,154 @@ __global__ void __launch_bounds__(kWarps * 32) group_fwd_kernel(FwdArgs a) {
   }
 }
 
+// r[] = row gr (C channels, lane-owned) as f32
 template <typename T>
-__device__ __forceinline__ void add_row(float (&acc)[kMaxCL], const T* gr, int C, int lane) {
+__device__ __forceinline__ void load_row(float (&r)[kMaxCL], const T* gr, int C, int lane) {
 #pragma unroll
   for (int j = 0; j < kMaxCL; ++j) {
     const int c = lane + 32 * j;
-    if (c < C) acc[j] += to_f(gr[c]);
+    r[j] = c < C ? to_f(gr[c]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void add_to(float (&acc)[kMaxCL], const float (&r)[kMaxCL]) {
+#pragma unroll
+  for (int j = 0; j < kMaxCL; ++j) acc[j] += r[j];
+}
+
+constexpr int kInFlight = 4;  // cotangent rows loaded ahead of their adds
+
+// acc += rows [k0, ns) of one query's slots (gm: its slot 0), in slot order
+template <typename T>
+__device__ __forceinline__ void add_fill(float (&acc)[kMaxCL], const T* gm, int k0, int ns, int C, int lane) {
+  for (int k = k0; k < ns; k += kInFlight) {
+    float r[kInFlight][kMaxCL];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (k + u < ns) load_row(r[u], gm + (size_t)(k + u) * C, C, lane);
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (k + u < ns) add_to(acc, r[u]);
+  }
+}
+
+// acc += the rows of up to kInFlight real slots (qm[u], qk[u]) of one cloud
+// (gb: its g; qm < 0: none), in order, a first hit (slot 0) followed by its
+// query's filled slots; the rows are loaded before the adds
+template <typename T>
+__device__ __forceinline__ void add_slots(float (&acc)[kMaxCL], const T* gb, const int (&qm)[kInFlight],
+                                          const int (&qk)[kInFlight], const int* s_thr, int ns, int C, int lane) {
+  float r[kInFlight][kMaxCL];
+#pragma unroll
+  for (int u = 0; u < kInFlight; ++u)
+    if (qm[u] >= 0) load_row(r[u], gb + ((size_t)qm[u] * ns + qk[u]) * C, C, lane);
+#pragma unroll
+  for (int u = 0; u < kInFlight; ++u) {
+    if (qm[u] < 0) continue;
+    add_to(acc, r[u]);
+    if (qk[u] == 0) add_fill(acc, gb + (size_t)qm[u] * ns * C, s_thr[qm[u]], ns, C, lane);
+  }
+}
+
+// The plane backward's slot scan, one thread per slot of cloud b's idx
+// (coalesced): real(m, k, p) for every real slot, and the count of
+// real slots of each query into s_thr (0 with no hit).
+template <typename F>
+__device__ __forceinline__ void scan_real_slots(const int* I, int M, int ns, int* s_thr, F real) {
+  for (int e = threadIdx.x; e < M * ns; e += blockDim.x) {
+    const int m = e / ns, k = e - m * ns;
+    const int p = I[e], p0 = I[e - k];
+    if (p0 < 0) {
+      if (k == 0) s_thr[m] = 0;
+      continue;
+    }
+    if (k > 0 && p == p0) continue;  // a filled slot
+    real(m, k, p);
+    if (k == ns - 1 || I[e + 1] == p0) s_thr[m] = k + 1;
   }
 }
 
 // dA[b, n, :] = sum of g rows routed to support point n, in (query, slot)
-// order. Block: one cloud and kTileN support points.
+// order; one block per cloud: the inverse of the cloud's real slots built
+// once, as lists per support point (count, exclusive scan, fill), each list
+// put in query order (its entries are distinct queries), then one warp per
+// support point sums its list.
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-group_bwd_kernel(const int* __restrict__ idx, const T* __restrict__ g, int N, int M, int ns, int C, T* __restrict__ dA) {
+__global__ void __launch_bounds__(kBwdThreads)
+group_bwd_kernel(const int* __restrict__ idx, const T* __restrict__ g, int N, int M, int ns, int C,
+                 T* __restrict__ dA) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Mp = (M + 31) & ~31;
-  signed char* inv = reinterpret_cast<signed char*>(smem);  // [kTileN][Mp]: real slot or -1
-  int* s_thr = reinterpret_cast<int*>(smem + align16((size_t)kTileN * Mp));  // real slots per query
-  const int tiles = (N + kTileN - 1) / kTileN;
-  const int b = blockIdx.x / tiles;
-  const int n0 = (blockIdx.x % tiles) * kTileN;
-  for (int i = threadIdx.x; i < kTileN * Mp; i += blockDim.x) inv[i] = -1;
+  int* cnt = reinterpret_cast<int*>(smem);  // [N]: real slots per point, then a fill cursor
+  int* off = cnt + N;                       // [N + 1]: list starts
+  int* s_thr = off + N + 1;                 // [M]: real slots per query
+  int* list = s_thr + M;                    // [real slots]: m << 7 | k
+  __shared__ int s_warp[kBwdThreads / 32];
+  const int b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int* I = idx + (size_t)b * M * ns;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  scan_real_slots(I, M, ns, s_thr, [&](int, int, int p) { atomicAdd(&cnt[p], 1); });
   __syncthreads();
 
-  const int* I = idx + (size_t)b * M * ns;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const int* im = I + (size_t)m * ns;
-    const int p0 = im[0];
-    int thr = 0;
-    if (p0 >= 0) {
-      // real hits are distinct and come first; filled slots repeat p0
-      thr = 1;
-      if (p0 >= n0 && p0 < n0 + kTileN) inv[(p0 - n0) * Mp + m] = 0;
-      for (int k = 1; k < ns; ++k) {
-        const int p = im[k];
-        if (p == p0) break;
-        thr = k + 1;
-        if (p >= n0 && p < n0 + kTileN) inv[(p - n0) * Mp + m] = (signed char)k;
+  // exclusive scan of cnt into off: a contiguous run of points per thread
+  const int per = (N + blockDim.x - 1) / blockDim.x;
+  const int lo = min(N, threadIdx.x * per), hi = min(N, lo + per);
+  int run = 0;
+  for (int i = lo; i < hi; ++i) run += cnt[i];
+  int incl = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int base = incl - run;
+  for (int w = 0; w < warp; ++w) base += s_warp[w];
+  for (int i = lo; i < hi; ++i) {
+    off[i] = base;
+    base += cnt[i];
+  }
+  if (threadIdx.x == blockDim.x - 1) off[N] = base;
+  __syncthreads();
+  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
+  __syncthreads();
+  scan_real_slots(I, M, ns, s_thr, [&](int m, int k, int p) { list[off[p] + atomicAdd(&cnt[p], 1)] = (m << 7) | k; });
+  __syncthreads();
+
+  const T* gb = g + (size_t)b * M * ns * C;
+  for (int n = warp; n < N; n += warps) {
+    const int s0 = off[n], L = off[n + 1] - s0;
+    int* seg = list + s0;
+    // query order: rank by comparison in registers, or by one lane past 32
+    if (L > 1 && L <= 32) {
+      const int key = lane < L ? seg[lane] : 0x7fffffff;
+      int rank = 0;
+      for (int j = 0; j < L; ++j) rank += __shfl_sync(0xffffffffu, key, j) < key;
+      __syncwarp();
+      if (lane < L) seg[rank] = key;
+    } else if (L > 32 && lane == 0) {
+      for (int i = 1; i < L; ++i) {
+        const int key = seg[i];
+        int j = i - 1;
+        for (; j >= 0 && seg[j] > key; --j) seg[j + 1] = seg[j];
+        seg[j + 1] = key;
       }
     }
-    s_thr[m] = thr;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int nl = warp; nl < kTileN; nl += kWarps) {
-    const int n = n0 + nl;
-    if (n >= N) break;
+    __syncwarp();
     float acc[kMaxCL];
 #pragma unroll
     for (int j = 0; j < kMaxCL; ++j) acc[j] = 0.0f;
-    const signed char* row = inv + nl * Mp;
-    for (int m0 = 0; m0 < M; m0 += 32) {
-      const int v = m0 + lane < M ? row[m0 + lane] : -1;
-      unsigned bits = __ballot_sync(0xffffffffu, v >= 0);
-      while (bits) {
-        const int bit = __ffs(bits) - 1;
-        bits &= bits - 1;
-        const int m = m0 + bit;
-        const int k = __shfl_sync(0xffffffffu, v, bit);
-        const T* gm = g + ((size_t)b * M + m) * ns * C;
-        add_row(acc, gm + (size_t)k * C, C, lane);
-        if (k == 0)  // a first hit also takes the query's filled slots
-          for (int kk = s_thr[m]; kk < ns; ++kk) add_row(acc, gm + (size_t)kk * C, C, lane);
+    for (int i = 0; i < L; i += kInFlight) {
+      int qm[kInFlight], qk[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int key = i + u < L ? seg[i + u] : -1;
+        qm[u] = key >= 0 ? key >> 7 : -1;
+        qk[u] = key >= 0 ? key & 127 : 0;
       }
+      add_slots(acc, gb, qm, qk, s_thr, ns, C, lane);
     }
     T* out = dA + ((size_t)b * N + n) * C;
 #pragma unroll
@@ -316,13 +418,16 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch_bwd(const int* idx, const void* g, int B, int N, int M, int ns, int C, void* dA,
                        cudaStream_t stream) {
-  const size_t smem = align16((size_t)kTileN * ((M + 31) & ~31)) + sizeof(int) * M;
-  cudaError_t err = cudaFuncSetAttribute(group_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = bwd_smem(N, M, ns);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((N + kTileN - 1) / kTileN) * B;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  group_bwd_kernel<T><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(idx, static_cast<const T*>(g), N, M, ns, C,
-                                                                       static_cast<T*>(dA));
+  if (smem + sizeof(int) * kBwdThreads / 32 > (size_t)optin) return cudaErrorInvalidValue;  // + its static s_warp
+  err = cudaFuncSetAttribute(group_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  group_bwd_kernel<T><<<B, kBwdThreads, smem, stream>>>(idx, static_cast<const T*>(g), N, M, ns, C,
+                                                         static_cast<T*>(dA));
   return cudaGetLastError();
 }
 
@@ -360,10 +465,11 @@ extern "C" int or4d_group_fwd(int dtype, const float* xyz, const float* new_xyz,
 }
 
 // Plane-mode backward: g (B, M, ns, C) and the forward's idx -> dA (B, N, C),
-// all of g's dtype. M <= 1024, C <= 256.
+// all of g's dtype. C <= 256, and one cloud's inverse (bwd_smem) must fit in
+// a block's shared memory.
 extern "C" int or4d_group_bwd(int dtype, const int* idx, const void* g, int B, int N, int M, int ns, int C, void* dA,
                               void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || M > kMaxM || ns <= 0 || ns > kMaxNs || C <= 0 || C > kMaxC ||
+  if (B <= 0 || N <= 0 || M <= 0 || ns <= 0 || ns > kMaxNs || C <= 0 || C > kMaxC ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

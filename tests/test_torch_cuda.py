@@ -15,6 +15,7 @@ from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
 from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
 from or4d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
 from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale, ball_query_multiscale_plain
 from or4d_tpu_torch.ops.serving_sa1_mlp import serving_sa1_mlp, serving_sa1_mlp_plain
 
@@ -203,6 +204,87 @@ def test_group_wrappers_raise_on_bad_inputs(card):
         bqgr.group_raw_fwd(xyz, q, 0.3, 8, torch.randn(6, 160, device=card), raw)
     with pytest.raises(ValueError):  # idx of the wrong dtype
         bqg.group_bwd(torch.zeros(2, 32, 8, dtype=torch.int64, device=card), torch.randn(2, 32, 8, 16, device=card), 300)
+    assert bqg.bwd_smem_bytes(8000, 1024, 64) > bqg._MAX_BWD_SMEM
+    with pytest.raises(ValueError):  # one cloud's lists do not fit in shared memory
+        bqg.group_bwd(torch.zeros(1, 1024, 64, dtype=torch.int32, device=card),
+                      torch.randn(1, 1024, 64, 16, device=card), 8000)
+
+
+# SA1's train grouping with train_raw false (TPU row 9) at the relation
+# crops' widths, and the bounds pre-pass (row 10) on SA1 geometry
+SA1_SCALES = ((0.1, 16), (0.2, 32))
+
+
+def _sa1_geometry(seed, B, N, card):
+    xyz = _cloud(seed, B, N).to(card)
+    idx, counts = furthest_point_sample_with_counts(xyz, 512, tuple(r for r, _ in SA1_SCALES))
+    q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+    return xyz, q, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_group_kernels_match_plain(card, dtype):
+    xyz, q, counts = _sa1_geometry(9, 2, 8000, card)
+    need = counts_to_bounds(SA1_SCALES, counts)[1][0].int().contiguous()
+    A = torch.randn(2, 8000, 64, generator=torch.Generator().manual_seed(9)).to(dtype).to(card)
+    reset_launch_counts()
+    got, gidx = bqg.group_fwd(xyz, q, 0.2, 32, A, need, bqg.LAUNCHES_GATED)
+    want, widx = bqg.group_fwd_plain(xyz, q, 0.2, 32, A, need)
+    torch.testing.assert_close(gidx, widx, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(bqg.group_fwd_plain(xyz, q, 0.2, 32, A)[1], widx, rtol=0, atol=0)  # exact bound
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(10)).to(dtype).to(card)
+    dA = bqg.group_bwd(gidx, g, 8000, bqg.LAUNCHES_GATED)
+    counts_now = launch_counts()
+    assert counts_now["group_gated.fwd"] == 1 and counts_now["group_gated.bwd"] == 1
+    assert counts_now["group.fwd"] == 0 and counts_now["group.bwd"] == 0
+    _close_bwd(dA, bqg.group_bwd_plain(gidx, g, 8000), "dA")
+    a1 = A.clone().requires_grad_(True)
+    (bqg.ball_query_group_gated(xyz, q, 0.2, 32, a1, need) * g).sum().backward()
+    _close_bwd(a1.grad, dA, "dA")
+    assert launch_counts()["group_gated.fwd"] == 2
+
+
+@pytest.mark.parametrize("case", ["N1100_ns16", "N8000_ns64", "N8000_C128", "clustered", "N512_ns64"])
+def test_plane_backward_on_wide_supports_matches_plain(card, case):
+    """The per-cloud list backward at SA1's and SA2's (N512_ns64) widths; a
+    query with no hit, and in the clustered case every query sharing its
+    first hits (lists of M entries)."""
+    N, M, ns, C = {"N1100_ns16": (1100, 128, 16, 64), "N8000_ns64": (8000, 512, 64, 64),
+                   "N8000_C128": (8000, 512, 32, 128), "clustered": (1100, 512, 32, 64),
+                   "N512_ns64": (512, 128, 64, 128)}[case]
+    xyz, q, A = _group_inputs(N + ns, 3, N, M, C, torch.float32)
+    if case == "clustered":
+        xyz = xyz * 0.01
+        q = q * 0.01
+        q[0, 1] = 40.0
+    xyz, q, A = xyz.to(card), q.to(card), A.to(card)
+    _out, idx = bqg.group_fwd(xyz, q, 0.3, ns, A)
+    assert (idx[0, 1] == -1).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.randn(3, M, ns, C, generator=torch.Generator().manual_seed(N)).to(dtype).to(card)
+        dA = bqg.group_bwd(idx, g, N)
+        _close_bwd(dA, bqg.group_bwd_plain(idx, g, N), "dA")
+        torch.testing.assert_close(bqg.group_bwd(idx, g, N), dA, rtol=0, atol=0)  # deterministic
+
+
+@pytest.mark.parametrize("N", [1100, 4000, 8000])
+def test_bounds_kernel_exact(card, N):
+    xyz, q, counts = _sa1_geometry(N + 3, 3, N, card)
+    reset_launch_counts()
+    got = ball_query_bounds(SA1_SCALES, xyz, q)
+    assert launch_counts()["bounds.prepass"] == 1
+    for (gn, gt), (need, _thr), c in zip(got, counts_to_bounds(SA1_SCALES, counts), counts):
+        torch.testing.assert_close(gn, need, rtol=0, atol=0)
+        torch.testing.assert_close(gt, c.sum(-1), rtol=0, atol=0)
+    q[1, 5] = 40.0  # no hit: need 1, total 0
+    got = ball_query_bounds(SA1_SCALES, xyz, q)
+    for (gn, gt), (wn, wt) in zip(got, ball_query_bounds_plain(SA1_SCALES, xyz, q)):
+        torch.testing.assert_close(gn, wn, rtol=0, atol=0)
+        torch.testing.assert_close(gt, wt, rtol=0, atol=0)
+        assert gn[1, 5] == 1.0 and gt[1, 5] == 0.0
+    with pytest.raises(ValueError):  # five scales
+        ball_query_bounds(((0.1, 4),) * 5, xyz, q)
 
 
 # serving path (TPU rows 8 and 7): the multi-scale ball query exactly; the

@@ -1,7 +1,8 @@
 """Train-path grouping of the port vs the JAX package: TPU kernel rows 6
 (``ball_query_group_pallas``) and 5 (``ball_query_group_pallas_gated_raw``),
 forward and backward, and the SA train modules against the JAX module on
-its TPU-default ``train_kernel`` path.
+its TPU-default ``train_kernel`` path and on its ``train_raw=False`` path
+(row 9; the row itself is tested in ``test_torch_train_gated.py``).
 
 The same numpy inputs and cotangents go through ``jax.vjp`` of the Pallas
 kernels in interpret mode and through the port's autograd Functions on CPU
@@ -147,15 +148,17 @@ def _to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("case", ["sa1_raw_row5", "sa2_plane_row6"])
+@pytest.mark.parametrize("case", ["sa1_raw_row5", "sa2_plane_row6", "sa1_plane_row9"])
 def test_sa_train_module_matches_tpu_default_path(case):
     """The JAX module with the TPU defaults (raw mode, slot-pair packing,
     per-scale sorted gated kernels; interpret mode) against the port's SA
-    train forward: output, every parameter's gradient (and, for SA2, the
-    features' gradient) and the updated running statistics, with a row
-    mask that marks one cloud invalid."""
+    train forward: output, every parameter's gradient (and, for SA2 and on
+    the ``train_raw=False`` path, the features' gradient) and the updated
+    running statistics, with a row mask that marks one cloud invalid."""
     rng = np.random.default_rng(4)
-    if case == "sa1_raw_row5":
+    train_raw = case != "sa1_plane_row9"
+    features_grad = case != "sa1_raw_row5"
+    if case.startswith("sa1"):
         B, N, C, npoint = 3, 600, 3, 32
         jscales = (JSAScale(0.15, 4, (16, 16)), JSAScale(0.3, 8, (16, 24)))
     else:
@@ -164,7 +167,7 @@ def test_sa_train_module_matches_tpu_default_path(case):
     xyz = _cloud(rng, B, N)
     feats = rng.standard_normal((B, N, C)).astype(np.float32)
     mask = np.array([1.0, 0.0, 1.0], np.float32)
-    mod = JSA(npoint=npoint, scales=jscales, fused_mode="train_kernel", kernel_interpret=True, train_raw=True,
+    mod = JSA(npoint=npoint, scales=jscales, fused_mode="train_kernel", kernel_interpret=True, train_raw=train_raw,
               packed_slots=True, train_per_scale_sort=True)
     v = randomize(mod.init(jax.random.key(0), jnp.asarray(xyz), jnp.asarray(feats), train=False), 11)
     width = sum(s.mlp[-1] for s in jscales)
@@ -178,9 +181,10 @@ def test_sa_train_module_matches_tpu_default_path(case):
     (_, (jnx, jout, jstats)), (jgp, jgf) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
         v["params"], jnp.asarray(feats))
 
-    port = SetAbstractionMSG(C + 3, npoint, tuple(SAScale(s.radius, s.nsample, s.mlp) for s in jscales))
+    port = SetAbstractionMSG(C + 3, npoint, tuple(SAScale(s.radius, s.nsample, s.mlp) for s in jscales),
+                             train_raw=train_raw)
     port.load_state_dict(from_jax_variables(v, port))
-    tf = torch.from_numpy(feats).requires_grad_(case == "sa2_plane_row6")
+    tf = torch.from_numpy(feats).requires_grad_(features_grad)
     reset_launch_counts()
     nx, out = port(torch.from_numpy(xyz), tf, mask=torch.from_numpy(mask), train=True)
     (out * torch.from_numpy(proj)).sum().backward()
@@ -193,6 +197,7 @@ def test_sa_train_module_matches_tpu_default_path(case):
         np.testing.assert_allclose(p.grad.numpy(), want[k].numpy(), rtol=1e-4, atol=1e-4, err_msg=k)
     for k, b in port.named_buffers():
         np.testing.assert_allclose(b.numpy(), want[k].numpy(), rtol=1e-4, atol=1e-4, err_msg=k)
-    if case == "sa2_plane_row6":
+    if features_grad:
+        assert np.abs(np.asarray(jgf)).max() > 0
         np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jgf), rtol=1e-4, atol=1e-4)
     assert all(v == 0 for v in launch_counts().values())
