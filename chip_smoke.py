@@ -12,7 +12,9 @@ slice and train phases.
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit.
 2. build   — nvcc builds every kernel source; the ptxas register, shared
-             memory and spill summary per kernel.
+             memory and spill summary per kernel, and per kernel the count
+             of tensor-core instructions (HMMA) in its SASS (cuobjdump): the
+             fused SA stage's bfloat16 body must have them.
 3. check   — every kernel against its plain PyTorch version on the card, on
              the inputs the main path hands it (recorded from an S=8 eval
              forward, cut to 64 clouds): FPS indices and counts exactly, the
@@ -24,7 +26,10 @@ slice and train phases.
              1e-3.
 5. timing  — CUDA-event times of each kernel on the inputs of an S=64
              bfloat16 batch (the bench.py default) beside its plain version
-             and its bound; end-to-end batch time, scenes/s and peak memory.
+             and its bound (and bound_share = bound / time); end-to-end batch
+             time, scenes/s, peak memory and a torch.profiler breakdown; the
+             batch must run the fused SA stage's bfloat16 (tensor-core) body
+             only.
 6. check_train — the train grouping kernels (forward and backward: raw
              mode, plane mode, and plane mode with the FPS bound, SA1's
              grouping with ``train_raw`` false) against their plain versions
@@ -72,7 +77,7 @@ slice and train phases.
              resident, scenes/s, peak memory and a torch.profiler breakdown;
              the ball query's ms on the cache build's inputs and the serving
              MLP's ms on the forward's, beside their plain versions and
-             bounds.
+             bounds (and bound_share).
 
 Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``. Weights are random, from a seed.
@@ -154,6 +159,31 @@ def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sass_mma_counts(paths) -> dict:
+    """{source: {kernel: HMMA instructions}} from ``cuobjdump -sass`` of each
+    built library, or None where the toolkit has no cuobjdump."""
+    import os
+    import re
+
+    tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    counts = {}
+    for name, path in paths.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        per, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                per[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                per[fn] += 1
+        counts[name] = per
+    return counts
 
 
 class Recorder:
@@ -250,6 +280,16 @@ def run_call(name, args, kw, plain: bool):
     if plain:
         return sa_group_mlp.sa_group_mlp_plain(*args, **kw)
     return sa_group_mlp.sa_group_mlp(*args, **kw)
+
+
+def reset_bodies() -> dict:
+    """Zeroes and returns the fused SA stage's per-body launch counts (a
+    live dict: read it after the run)."""
+    from or4d_tpu_torch.ops.sa_group_mlp import BODY_LAUNCHES
+
+    for k in BODY_LAUNCHES:
+        BODY_LAUNCHES[k] = 0
+    return BODY_LAUNCHES
 
 
 def max_abs_diff(a, b) -> float:
@@ -972,7 +1012,7 @@ def serving_phases(args, rec, smi, results, stats) -> None:
             stats["bound_t"][name][0 if b_by == "bytes" else 1] += b_ms
             shape = tuple((cargs[1] if name == "ball_query_multiscale" else cargs[0]).shape)
             per_call.append({"row": name, "card": smi, "shape": str(shape), "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, **info})
+                             "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms, **info})
             emit({"phase": "timing_serving_kernel", **per_call[-1]})
 
     time_calls(build_calls, 3)
@@ -981,11 +1021,14 @@ def serving_phases(args, rec, smi, results, stats) -> None:
     model(bst, pS, sa1_caches=caches)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
+    bodies = reset_bodies()
     torch.cuda.reset_peak_memory_stats()
     model(bst, pS, sa1_caches=caches)
     torch.cuda.synchronize()
     per_batch = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if bodies["fp32"] != 0 or bodies["mma"] == 0:
+        fail(f"the S={S} bfloat16 serving batch did not run the SA tensor-core body only: {bodies}")
     reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -996,6 +1039,7 @@ def serving_phases(args, rec, smi, results, stats) -> None:
            "peak_mem_bytes": peak, "cache_build_host_seconds": build_s,
            "cache_bytes": sum(c.nbytes for c in caches), "object_rows": int(pS.obj_idx.numel()),
            "relation_rows": int(pS.edge_idx.numel()), "launches_per_batch": per_batch,
+           "sa_body_launches": dict(bodies),
            "finite": bool(torch.isfinite(out.rel_logprobs).all())}
     e2e["profile"] = profile_step(lambda: model(bst, pS, sa1_caches=caches), batch_ms)
     emit({"phase": "timing_serving", **e2e})
@@ -1041,9 +1085,13 @@ def main(argv=None) -> int:
     ptxas = {n: [l.replace("ptxas info    : ", "").strip() for l in _build.build_log.get(n, "").splitlines()
                  if "Used" in l or "spill" in l or "Compiling entry" in l]
              for n in paths}
+    hmma = sass_mma_counts(paths)
     results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
-                        "ptxas": ptxas}
+                        "ptxas": ptxas, "sass_hmma": hmma}
     emit({"phase": "build", **results["build"]})
+    mma_kernels = {k: v for k, v in (hmma or {}).get("sa_group_mlp", {}).items() if "sa_mma_kernel" in k}
+    if hmma is not None and (not mma_kernels or not all(mma_kernels.values())):
+        fail(f"the fused SA stage's bfloat16 kernels have no tensor-core instructions: {mma_kernels}")
 
     rec = Recorder()
     t0 = time.perf_counter()
@@ -1128,11 +1176,14 @@ def main(argv=None) -> int:
     model_bf16(bS, pS)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
+    bodies = reset_bodies()
     torch.cuda.reset_peak_memory_stats()
     model_bf16(bS, pS)
     torch.cuda.synchronize()
     launches_S = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if bodies["fp32"] != 0 or bodies["mma"] == 0:
+        fail(f"the S={S} bfloat16 batch did not run the fused SA stage's tensor-core body only: {bodies}")
     reps = 3
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1140,8 +1191,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     batch_ms = 1e3 * (time.perf_counter() - t0) / reps
     e2e = {"card": smi, "scenes": S, "dtype": "bfloat16", "batch_ms": batch_ms, "scenes_per_s": S / (batch_ms / 1e3),
-           "peak_mem_bytes": peak, "launches_per_batch": launches_S,
+           "peak_mem_bytes": peak, "launches_per_batch": launches_S, "sa_body_launches": dict(bodies),
            "finite": bool(torch.isfinite(out.rel_logprobs).all())}
+    e2e["profile"] = profile_step(lambda: model_bf16(bS, pS), batch_ms)
     emit({"phase": "timing_e2e", **e2e})
     if not e2e["finite"]:
         fail(f"S={S} bfloat16 log-probs are not finite")
@@ -1160,7 +1212,7 @@ def main(argv=None) -> int:
         bound_ms[row] = bound_ms.get(row, 0.0) + b_ms
         bound_t[row][0 if b_by == "bytes" else 1] += b_ms
         per_call.append({"row": row, "card": smi, "shape": str(tuple(cargs[0].shape)), "ms": k_ms, "plain_ms": p_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, **info})
+                         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms, **info})
         emit({"phase": "timing_kernel", **per_call[-1]})
     results["timing"] = {"e2e": e2e, "per_call": per_call}
     torch.set_grad_enabled(True)

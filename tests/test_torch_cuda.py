@@ -58,14 +58,15 @@ def test_fps_counts_kernel_exact(card, N, radii):
         torch.testing.assert_close(c.cpu(), w, rtol=0, atol=0)
 
 
-def _sa_inputs(seed, B, N, M, C0, C1, C2, paired, dtype, raw_mode=True):
+def _sa_inputs(seed, B, N, M, C0, C1, C2, paired, dtype, raw_mode=True, radius=0.2, ns=32):
     g = torch.Generator().manual_seed(seed)
     xyz = _cloud(seed, B, N)
     new_xyz = xyz[:, torch.randperm(N, generator=g)[:M]].contiguous()
-    args = [xyz, new_xyz, 0.2, 32, (torch.randn(B, M, C1, generator=g) * 0.5).to(dtype),
+    new_xyz[0, 1] = 40.0  # far from every point: no hit, a zero A row
+    args = [xyz, new_xyz, radius, ns, (torch.randn(B, M, C1, generator=g) * 0.5).to(dtype),
             torch.rand(C1, generator=g) + 0.5, torch.randn(C1, generator=g) * 0.2,
             (torch.randn(C1, C2, generator=g) / C1 ** 0.5).to(dtype),
-            torch.rand(C2, generator=g) + 0.5, torch.randn(C2, generator=g) * 0.2]
+            torch.randn(C2, generator=g), torch.randn(C2, generator=g) * 0.2]  # a1 of both signs
     if raw_mode:
         kw = dict(raw=torch.randn(B, C0 + int(paired), N, generator=g).to(dtype),
                   W0=(torch.randn(C0, C1, generator=g) / C0 ** 0.5).to(dtype), paired=paired)
@@ -78,29 +79,67 @@ def _on(x, dev):
     return x.to(dev) if isinstance(x, torch.Tensor) else x
 
 
+# (B, N, M, C0, C1, C2, mode, radius, ns): the main path's widths (SA1
+# objects and paired relations, SA2 on staged planes), ns 128 over eight
+# tiles, a plane too large to stage, odd widths padded to the tiles (an odd
+# C1 reads plane rows one value at a time); M is
+# not a multiple of a block's queries, and many queries have fewer than ns
+# hits
+SA_CASES = {
+    "raw_c06_ns16": (2, 4000, 300, 6, 64, 64, "raw", 0.1, 16),
+    "paired_c07_ns32": (2, 8000, 300, 7, 64, 128, "paired", 0.2, 32),
+    "plane_ns32": (5, 512, 128, 0, 128, 128, "plane", 0.2, 32),
+    "plane_ns64": (5, 512, 100, 0, 128, 128, "plane", 0.4, 64),
+    "raw_ns128_tiles": (2, 1100, 70, 6, 64, 128, "raw", 0.6, 128),
+    "plane_unstaged_n1100": (3, 1100, 130, 0, 128, 128, "plane", 0.2, 32),
+    "plane_c1_63_c2_256": (3, 512, 64, 0, 63, 256, "plane", 0.3, 48),
+    "odd_widths": (2, 700, 90, 3, 39, 20, "paired", 0.25, 5),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["raw", "paired", "plane"])
-def test_sa_kernel_matches_plain(card, dtype, mode):
-    args, kw = _sa_inputs(3, 4, 1100, 128, 7, 64, 128, mode == "paired", dtype, mode != "plane")
+@pytest.mark.parametrize("case", sorted(SA_CASES))
+def test_sa_kernel_matches_plain(card, dtype, case):
+    from or4d_tpu_torch.ops import sa_group_mlp as sgm
+
+    B, N, M, C0, C1, C2, mode, radius, ns = SA_CASES[case]
+    args, kw = _sa_inputs(len(case), B, N, M, C0, C1, C2, mode == "paired", dtype, mode != "plane", radius, ns)
     want = sa_group_mlp(*args, **kw)
     reset_launch_counts()
+    bodies = dict(sgm.BODY_LAUNCHES)
     got = sa_group_mlp(*[_on(a, card) for a in args], **{k: _on(v, card) for k, v in kw.items()})
     assert launch_counts()["sa_group_mlp." + ("plane" if mode == "plane" else "raw")] == 1
+    body = "mma" if dtype == torch.bfloat16 else "fp32"
+    assert sgm.BODY_LAUNCHES[body] == bodies[body] + 1 and sum(sgm.BODY_LAUNCHES.values()) == sum(bodies.values()) + 1
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_sa_kernel_need_bound_changes_nothing(card):
-    xyz = _cloud(5, 2, 1100).to(card)
-    idx, counts = furthest_point_sample_with_counts(xyz, 128, (0.2,))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [16, 32])
+def test_sa_kernel_need_bound_changes_nothing(card, ns, dtype):
+    r = {16: 0.1, 32: 0.2}[ns]
+    xyz = _cloud(5, 2, 4000).to(card)
+    idx, counts = furthest_point_sample_with_counts(xyz, 512, (r,))
     new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
-    from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
-
-    need = counts_to_bounds(((0.2, 32),), counts)[0][0].int().contiguous()
-    args, kw = _sa_inputs(6, 2, 1100, 128, 6, 64, 64, False, torch.float32)
+    need = counts_to_bounds(((r, ns),), counts)[0][0].int().contiguous()
+    args, kw = _sa_inputs(6, 2, 4000, 512, 6, 64, 64, False, dtype, radius=r, ns=ns)
     args[0], args[1] = xyz, new_xyz
     args = [_on(a, card) for a in args]
     kw = {k: _on(v, card) for k, v in kw.items()}
     torch.testing.assert_close(sa_group_mlp(*args, **kw, need=need), sa_group_mlp(*args, **kw), rtol=0, atol=0)
+
+
+def test_sa_kernel_refuses_a_plan_over_shared_memory(card, monkeypatch):
+    from or4d_tpu_torch.ops import sa_group_mlp as sgm
+
+    args, kw = _sa_inputs(8, 1, 512, 64, 0, 128, 128, False, torch.bfloat16, False)
+    args = [_on(a, card) for a in args]
+    kw = {k: _on(v, card) for k, v in kw.items()}
+    monkeypatch.setattr(sgm, "MAX_SMEM", 20000)
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        sa_group_mlp(*args, **kw)
+    assert launch_counts()["sa_group_mlp.plane"] == 0
 
 
 def test_kernel_wrappers_raise_outside_limits(card):
