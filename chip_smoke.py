@@ -14,10 +14,12 @@ slice and train phases.
 2. build   — nvcc builds every kernel source; the ptxas register, shared
              memory and spill summary per kernel, and per kernel the count
              of tensor-core instructions (HMMA) in its SASS (cuobjdump): the
-             fused SA stage's bfloat16 body must have them.
+             bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
+             must have them.
 3. check   — every kernel against its plain PyTorch version on the card, on
              the inputs the main path hands it (recorded from an S=8 eval
-             forward, cut to 64 clouds): FPS indices and counts exactly, the
+             forward, cut to 64 clouds): FPS indices and its search bounds
+             exactly (the plain FPS counts, then ``counts_to_bounds``), the
              fused SA stage within 1e-4 in float32 and 2e-2 in bfloat16.
 4. slice   — ``predict_relations`` on S=8 synthetic pair-shared scenes in
              bfloat16 (scan_relations JSON written to --out); every kernel's
@@ -29,7 +31,8 @@ slice and train phases.
              and its bound (and bound_share = bound / time); end-to-end batch
              time, scenes/s, peak memory and a torch.profiler breakdown; the
              batch must run the fused SA stage's bfloat16 (tensor-core) body
-             only.
+             only. Row 1's calls split: FPS alone, with counts, the
+             ``counts_to_bounds`` of the counts, and the bounds variant.
 6. check_train — the train grouping kernels (forward and backward: raw
              mode, plane mode, and plane mode with the FPS bound, SA1's
              grouping with ``train_raw`` false) against their plain versions
@@ -42,7 +45,7 @@ slice and train phases.
              version, and the need and hit totals of the FPS kernel's counts.
 7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes, on
              each SA1 path: finite losses, and every launch counter of that
-             path (FPS with and without counts, its grouping kernels forward
+             path (FPS with and without bounds, its grouping kernels forward
              and backward) rises, the other path's SA1 counters do not. Then
              per path one float32 S=1 step on the card and on the CPU from
              the same weights and random draws: losses within 1e-4, every
@@ -63,15 +66,18 @@ slice and train phases.
              the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
              plain versions on the card, on the inputs of an S=8 bfloat16
              serving cache build and forward (unpaired synthetic scenes), cut
-             to 64 clouds.
+             to 64 clouds; then the serving SA1 stage against the cold one on
+             the same S=8 crops in bfloat16, per encoder and scale: equal bit
+             for bit (one tile code).
 10. serving — a ``ServingEvaluator`` on those S=8 scenes in bfloat16 with
              its cache directory under --out: a finite macro F1, and the FPS,
              SA plane-mode, ball-query and serving-MLP counters rise; a second
              evaluator loads the cache files (no ball-query launch) and
-             gives the same F1; the files are then removed. Then float32 at S=1: serving log-probs on the
-             card and on the CPU within 1e-3, and serving against the cold
-             unpaired forward on the card within 1e-4 (bfloat16 at S=8:
-             reported).
+             gives the same F1; the files are then removed. Serving against
+             the cold unpaired forward at S=8 in bfloat16 within 1e-4. Then
+             float32 at S=1: serving log-probs on the card and on the CPU
+             within 1e-3, serving against the cold unpaired forward on the
+             card within 1e-4, and the SA1 stages' gap alone (reported).
 11. timing_serving — the S=64 bfloat16 serving batch: cache build host
              seconds and bytes (set-up), forward batch ms with the caches
              resident, scenes/s, peak memory and a torch.profiler breakdown;
@@ -101,12 +107,13 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 
-# TPU kernel rows of the serving path (PERF.md table rows 1-4:
+# TPU kernel rows of the eval path (PERF.md table rows 1-4:
 # furthest_point_sample_with_counts, furthest_point_sample_pallas,
 # ball_query_group_mlp_pallas_v4, ball_query_group_mlp_pallas) and the
-# counter that counts the port kernel serving each
+# counter that counts the port kernel serving each; row 1 runs as the FPS
+# kernel's bounds variant on the model paths
 ROWS = (
-    ("fps_with_counts", "fps.fps_counts", "or4d_tpu_torch/ops/csrc/fps.cu",
+    ("fps_with_counts", "fps.fps_bounds", "or4d_tpu_torch/ops/csrc/fps.cu",
      "or4d_tpu/ops/pallas_fps.py:156"),
     ("fps", "fps.fps", "or4d_tpu_torch/ops/csrc/fps.cu",
      "or4d_tpu/ops/pallas_fps.py:200"),
@@ -193,7 +200,7 @@ class Recorder:
     caught by a hook in the backward. With ``rows`` the tensors are cut to
     that many clouds and copied (W0 is a weight and stays whole)."""
 
-    NAMES = ("furthest_point_sample", "furthest_point_sample_with_counts", "sa_group_mlp",
+    NAMES = ("furthest_point_sample", "furthest_point_sample_with_bounds", "sa_group_mlp",
              "ball_query_group", "ball_query_group_gated", "ball_query_group_raw", "serving_sa1_mlp")
     SERVING_NAMES = ("ball_query_multiscale",)
 
@@ -243,7 +250,7 @@ class Recorder:
 
 
 def row_of(name: str, kw: dict) -> str:
-    if name == "furthest_point_sample_with_counts":
+    if name == "furthest_point_sample_with_bounds":
         return "fps_with_counts"
     if name == "furthest_point_sample":
         return "fps"
@@ -269,14 +276,12 @@ def cut(args, kw, rows: int, dtype=None):
 def run_call(name, args, kw, plain: bool):
     from or4d_tpu_torch.ops import fps, sa_group_mlp
 
-    if name.startswith("furthest"):
-        xyz, npoint = args[0], args[1]
-        radii = tuple(args[2]) if len(args) > 2 else ()
-        if plain:
-            return fps.furthest_point_sample_plain(xyz, npoint, radii)
-        if radii:
-            return fps.furthest_point_sample_with_counts(xyz, npoint, radii)
-        return fps.furthest_point_sample(xyz, npoint)
+    if name == "furthest_point_sample_with_bounds":
+        # plain: the plain FPS counts, then counts_to_bounds
+        fn = fps.furthest_point_sample_with_bounds_plain if plain else fps.furthest_point_sample_with_bounds
+        return fn(*args)
+    if name == "furthest_point_sample":
+        return (fps.furthest_point_sample_plain if plain else fps.furthest_point_sample)(*args)
     if plain:
         return sa_group_mlp.sa_group_mlp_plain(*args, **kw)
     return sa_group_mlp.sa_group_mlp(*args, **kw)
@@ -355,8 +360,10 @@ def bound(name, args, kw) -> tuple[float, str, dict]:
         xyz, npoint = args[0], args[1]
         nr = len(args[2]) if len(args) > 2 else 0
         B, N, _ = xyz.shape
-        nch = -(-N // CHUNK)
-        nbytes = B * N * 12 + B * npoint * 4 + nr * B * npoint * nch * 4
+        # out: idx, and per scale the bound need (the bounds variant) or the
+        # per-chunk counts
+        per_query = 1 if name == "furthest_point_sample_with_bounds" else -(-N // CHUNK)
+        nbytes = B * N * 12 + B * npoint * 4 + nr * B * npoint * per_query * 4
         # per point and step: 3 sub, 3 mul, 2 add, min, argmax compare; + a compare per radius
         steps = npoint - 1 + (1 if nr else 0)
         f32_ops = B * steps * N * (10 + nr)
@@ -387,6 +394,32 @@ def bound(name, args, kw) -> tuple[float, str, dict]:
         info = {"bytes": nbytes, "mm_flops": mm, "f32_ops": f32_ops, "real_slots": real, "scanned": scanned}
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
+
+
+def fps_split(calls, smi) -> list:
+    """Row 1's calls of one batch split by what they compute, each timed on
+    the recorded inputs in this call: FPS alone, FPS with the per-chunk
+    counts, the ``counts_to_bounds`` that turns the counts into the search
+    bounds, and the bounds variant the model paths run, which does both."""
+    from or4d_tpu_torch.ops import fps
+    from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
+
+    out = []
+    for name, cargs, _kw, _g in calls:
+        if name != "furthest_point_sample_with_bounds":
+            continue
+        xyz, npoint, scales = cargs
+        radii = tuple(r for r, _ns in scales)
+        _idx, counts = fps.furthest_point_sample_with_counts(xyz, npoint, radii)
+        entry = {"card": smi, "shape": str(tuple(xyz.shape)), "npoint": npoint, "scales": scales,
+                 "fps_ms": cuda_ms(lambda: fps.furthest_point_sample(xyz, npoint), 3),
+                 "fps_counts_ms": cuda_ms(lambda: fps.furthest_point_sample_with_counts(xyz, npoint, radii), 3),
+                 "counts_to_bounds_ms": cuda_ms(lambda: counts_to_bounds(scales, counts), 5),
+                 "fps_bounds_ms": cuda_ms(lambda: fps.furthest_point_sample_with_bounds(xyz, npoint, scales), 3)}
+        del counts
+        out.append(entry)
+        emit({"phase": "timing_fps_split", **entry})
+    return out
 
 
 def group_jobs(name, a, g, dtype=None):
@@ -691,7 +724,7 @@ def train_phases(args, rec, smi, results, stats) -> None:
         f1 = tr.evaluate([b8])
         train = {"scenes": 8, "dtype": "float32", "train_raw": train_raw, "losses": losses, "seconds": train_s,
                  "launches": launches, "macro_f1": f1}
-        missing = [c for c in ("fps.fps_counts", "fps.fps", "group.fwd", "group.bwd", *sa1_counters[train_raw])
+        missing = [c for c in ("fps.fps_bounds", "fps.fps", "group.fwd", "group.bwd", *sa1_counters[train_raw])
                    if launches.get(c, 0) == 0]
         stray = [c for c in sa1_counters[not train_raw] if launches.get(c, 0) != 0]
         if missing or stray:
@@ -843,6 +876,32 @@ def serving_bound(name, args) -> tuple[float, str, dict]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
 
 
+def sa1_serving_vs_cold(model, batch, pack) -> dict:
+    """Per encoder and SA1 scale, max |diff| between the serving SA1 stage
+    (the serving MLP on the batch's caches) and the cold one (FPS with
+    bounds, the fused SA stage in raw mode) on the same unpaired crops; inf
+    where the centroids differ."""
+    from or4d_tpu_torch import serving
+
+    caches = serving.build_sgpn_sa1_caches(model, batch, pack)
+    S, O, Po, Co = batch.obj_points.shape
+    _, E, Pr, Cr = batch.rel_points.shape
+    crops = (batch.obj_points.reshape(S * O, Po, Co).float()[pack.obj_idx],
+             batch.rel_points.reshape(S * E, Pr, Cr).float()[pack.edge_idx])
+    out = {}
+    for key, enc, pc, cache in zip(("obj", "rel"), (model.obj_encoder, model.rel_encoder), crops, caches):
+        q_cold, cold = enc.sa1(pc[..., :3].contiguous(), pc[..., 3:])
+        q_served, served = enc.sa1(None, None, cache=cache)
+        c0 = 0
+        for si, sc in enumerate(enc.sa1.scales):
+            c2 = sc.mlp[-1]
+            same_q = torch.equal(q_cold, q_served)
+            out[f"{key}_scale{si}"] = max_abs_diff(served[..., c0:c0 + c2], cold[..., c0:c0 + c2]) if same_q else \
+                float("inf")
+            c0 += c2
+    return out
+
+
 def run_serving_call(name, args, plain: bool):
     from or4d_tpu_torch.ops import ball_query_multiscale as bqm, serving_sa1_mlp as ssm
 
@@ -920,6 +979,14 @@ def serving_phases(args, rec, smi, results, stats) -> None:
             errs[name] = max(errs.get(name, 0.0), d)
             if not ok:
                 fail(f"{name} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+    # the serving SA1 stage against the cold one on the same S=8 crops, in
+    # bfloat16: the same tile code, so bit for bit
+    sa1 = sa1_serving_vs_cold(model, b8.to("cuda"), p8)
+    checks.append({"row": "serving_sa1_vs_cold_sa1", "dtype": str(torch.bfloat16), "max_abs_err_per_scale": sa1,
+                   "ok": all(d == 0.0 for d in sa1.values())})
+    emit({"phase": "check_serving", **checks[-1]})
+    if not checks[-1]["ok"]:
+        fail(f"bfloat16 serving SA1 differs from the cold SA1 stage on the same crops: {sa1}")
     results["check_serving"] = checks
     del calls, got, want, vals, jobs
 
@@ -947,7 +1014,7 @@ def serving_phases(args, rec, smi, results, stats) -> None:
         fail(f"the second evaluator did not serve from its cache file: {files}, {loaded_launches}, "
              f"F1 {f1_loaded} vs {f1}")
     shutil.rmtree(cache_dir)  # hundreds of MB of planes, not an output
-    # bfloat16 S=8: serving against the cold unpaired forward, reported
+    # bfloat16 S=8: serving against the cold unpaired forward
     caches8 = ev.batches[0][2]
     d_bf16 = float((model(strip(b8), p8, sa1_caches=caches8).rel_logprobs
                     - model(b8.to("cuda"), p8).rel_logprobs).abs().max())
@@ -972,16 +1039,20 @@ def serving_phases(args, rec, smi, results, stats) -> None:
     d_obj = float((out_gpu.obj_logprobs.cpu()[om] - out_cpu.obj_logprobs[om]).abs().max())
     d_cold = max(float((out_gpu.rel_logprobs - cold.rel_logprobs).abs().max()),
                  float((out_gpu.obj_logprobs - cold.obj_logprobs).abs().max()))
+    # where the float32 gap arises: the SA1 stages alone, on the same crops
+    sa1_f32 = sa1_serving_vs_cold(m_gpu, b1.to("cuda"), pack1.to("cuda"))
     finite = bool(torch.isfinite(out_gpu.rel_logprobs).all() and torch.isfinite(out_gpu.obj_logprobs).all())
     srv = {"scenes": 8, "dtype": "bfloat16", "macro_f1": f1, "macro_f1_from_cache_files": f1_loaded,
            "cache_files": files, "seconds": serve_s, "launches": launches,
            "launches_loading_cache": loaded_launches, "bf16_s8_serving_vs_cold_max_abs_diff": d_bf16,
            "f32_s1_rel_max_abs_diff": d_rel, "f32_s1_obj_max_abs_diff": d_obj,
-           "f32_s1_serving_vs_cold_max_abs_diff": d_cold, "cpu_reference_seconds": cpu_s, "finite": finite}
+           "f32_s1_serving_vs_cold_max_abs_diff": d_cold, "f32_s1_sa1_serving_vs_cold_max_abs_diff": sa1_f32,
+           "cpu_reference_seconds": cpu_s, "finite": finite}
     results["serving"] = srv
     emit({"phase": "serving", **srv})
-    if not finite or d_rel > 1e-3 or d_obj > 1e-3 or d_cold > 1e-4:
-        fail(f"S=1 float32 serving differs: card vs CPU rel {d_rel} obj {d_obj}; vs cold {d_cold}")
+    if not finite or d_rel > 1e-3 or d_obj > 1e-3 or d_cold > 1e-4 or d_bf16 > 1e-4:
+        fail(f"serving differs: S=1 float32 card vs CPU rel {d_rel} obj {d_obj}, vs cold {d_cold}; "
+             f"S=8 bfloat16 vs cold {d_bf16}")
     del m_gpu, m_cpu, out_gpu, out_cpu, cold
 
     # timing_serving: the S=64 bf16 batch, caches resident
@@ -1089,9 +1160,11 @@ def main(argv=None) -> int:
     results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
                         "ptxas": ptxas, "sass_hmma": hmma}
     emit({"phase": "build", **results["build"]})
-    mma_kernels = {k: v for k, v in (hmma or {}).get("sa_group_mlp", {}).items() if "sa_mma_kernel" in k}
-    if hmma is not None and (not mma_kernels or not all(mma_kernels.values())):
-        fail(f"the fused SA stage's bfloat16 kernels have no tensor-core instructions: {mma_kernels}")
+    # the bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
+    for src, kern in (("sa_group_mlp", "sa_mma_kernel"), ("serving_sa1_mlp", "serving_mma_kernel")):
+        mma_kernels = {k: v for k, v in (hmma or {}).get(src, {}).items() if kern in k}
+        if hmma is not None and (not mma_kernels or not all(mma_kernels.values())):
+            fail(f"the bfloat16 kernels of {src}.cu have no tensor-core instructions: {mma_kernels}")
 
     rec = Recorder()
     t0 = time.perf_counter()
@@ -1214,7 +1287,7 @@ def main(argv=None) -> int:
         per_call.append({"row": row, "card": smi, "shape": str(tuple(cargs[0].shape)), "ms": k_ms, "plain_ms": p_ms,
                          "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms, **info})
         emit({"phase": "timing_kernel", **per_call[-1]})
-    results["timing"] = {"e2e": e2e, "per_call": per_call}
+    results["timing"] = {"e2e": e2e, "per_call": per_call, "fps_split": fps_split(calls, smi)}
     torch.set_grad_enabled(True)
     # the last recorded call's tensors too, before the train phases read peak memory
     del calls, bS, pS, out, model_bf16, m_gpu, m_cpu, out_gpu, out_cpu

@@ -14,8 +14,9 @@ with use_xyz=True. Channel-last throughout; geometry stays float32.
 Each SA scale runs as one fused kernel call (:mod:`or4d_tpu_torch.ops.sa_group_mlp`)
 on the delayed-aggregation form of its first layer, W @ [p - q, f] =
 W @ [p, f] - W_xyz @ q, with both eval BNs folded to affines. Supports wider
-than one 512-point chunk take the FPS kernel's hit counts as search bounds
-and build the layer-1 rows inside the kernel from the channel-major raw
+than one 512-point chunk take the search bounds the FPS kernel derives from
+its per-chunk hit counts (``furthest_point_sample_with_bounds``) and build
+the layer-1 rows inside the kernel from the channel-major raw
 [xyz|features] plane (the JAX package's v4 raw mode); narrower supports
 (SA2's 512 centroids) use a precomputed layer-1 plane. The relation
 encoder's paired mode runs SA1 once per unordered pair and emits both
@@ -25,7 +26,7 @@ Training keeps exact masked batch statistics, so each scale's grouped
 layer-1 rows come out of a grouping kernel with a backward, and
 ``DelayedSharedMLP.post`` runs BN/ReLU and the second layer on them in
 PyTorch before the max over the slots. Supports wider than one chunk (SA1)
-take the FPS kernel's hit counts as search bounds and, with ``train_raw``
+take the FPS kernel's search bounds and, with ``train_raw``
 (the default), group rows built from the raw plane
 (:func:`~or4d_tpu_torch.ops.ball_query_group_raw.ball_query_group_raw`, W0's
 gradient only: their features are model inputs); without it, rows of the
@@ -53,8 +54,8 @@ from torch import nn
 from or4d_tpu_torch.models.layers import Dense, MaskedBatchNorm, SharedMLP
 from or4d_tpu_torch.ops.ball_query_group import ball_query_group, ball_query_group_gated
 from or4d_tpu_torch.ops.ball_query_group_raw import ball_query_group_raw
-from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_counts
-from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+from or4d_tpu_torch.ops.fps import CHUNK, furthest_point_sample, furthest_point_sample_with_bounds
+from or4d_tpu_torch.ops.sa_group_mlp import sa_group_mlp
 from or4d_tpu_torch.ops.serving_sa1_mlp import serving_sa1_mlp
 
 SA1_RADII = (0.1, 0.2)
@@ -150,6 +151,9 @@ class SetAbstractionMSG(nn.Module):
         for si, sc in enumerate(self.scales):
             self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
 
+    def _scale_spec(self) -> tuple[tuple[float, int], ...]:
+        return tuple((sc.radius, sc.nsample) for sc in self.scales)
+
     def forward(self, xyz, features, features_alt=None, mask=None, train: bool = False, cache=None):
         if cache is not None:
             if train or features_alt is not None:
@@ -164,10 +168,8 @@ class SetAbstractionMSG(nn.Module):
         paired = features_alt is not None
         needs = [None] * len(self.scales)
         if N > CHUNK:
-            # the FPS kernel's per-chunk hit counts bound each query's search
-            idx, counts = furthest_point_sample_with_counts(xyz, self.npoint, tuple(sc.radius for sc in self.scales))
-            scale_spec = tuple((sc.radius, sc.nsample) for sc in self.scales)
-            needs = [need.int().contiguous() for need, _thr in counts_to_bounds(scale_spec, counts)]
+            # the FPS kernel's bounds (from its per-chunk hit counts) cut each query's search
+            idx, needs = furthest_point_sample_with_bounds(xyz, self.npoint, self._scale_spec())
         else:
             idx = furthest_point_sample(xyz, self.npoint)
         new_xyz = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
@@ -210,12 +212,9 @@ class SetAbstractionMSG(nn.Module):
         search within the FPS counts' bounds and group from the raw
         [xyz|features] plane (``train_raw``) or from the layer-1 plane."""
         N = xyz.shape[1]
-        radii = tuple(sc.radius for sc in self.scales)
         wide = N > CHUNK
         if wide:
-            idx, counts = furthest_point_sample_with_counts(xyz, self.npoint, radii)
-            scale_spec = tuple((sc.radius, sc.nsample) for sc in self.scales)
-            needs = [need.int().contiguous() for need, _thr in counts_to_bounds(scale_spec, counts)]
+            idx, needs = furthest_point_sample_with_bounds(xyz, self.npoint, self._scale_spec())
         else:
             idx = furthest_point_sample(xyz, self.npoint)
         if wide and self.train_raw:

@@ -4,8 +4,8 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, at first use, into
 ``build/or4d_tpu_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``), and loaded with ``ctypes``. Library names carry a hash of
-the source and flags, so an edited source is rebuilt and a stale library is
-never loaded. All sources are compiled in parallel, one ``nvcc`` each.
+the source, the ``csrc/*.cuh`` headers it includes and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. All sources are compiled in parallel, one ``nvcc`` each.
 
 A failed build raises with nvcc's output. Nothing here falls back to a plain
 version: the wrappers call :func:`library` only for CUDA tensors.
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +49,18 @@ def _nvcc() -> str:
     raise RuntimeError("or4d_tpu_torch: nvcc not found (PATH, then $CUDA_HOME/bin or /usr/local/cuda/bin)")
 
 
+def _includes(src: bytes) -> list[str]:
+    """The ``csrc`` headers a source names in ``#include "..."`` lines."""
+    return [m.decode() for m in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', src, flags=re.M)]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha1(src)
+    for header in _includes(src):
+        h.update((CSRC / header).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict[str, Path]:

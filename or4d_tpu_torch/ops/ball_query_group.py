@@ -222,7 +222,7 @@ def ball_query_group(xyz, new_xyz, radius: float, nsample: int, A) -> torch.Tens
 
 def ball_query_group_gated(xyz, new_xyz, radius: float, nsample: int, A, need) -> torch.Tensor:
     """:func:`ball_query_group` with the chunk bound ``need`` (B, M) int32
-    from the FPS kernel's counts (``counts_to_bounds``): the same rows and
+    from the FPS kernel (``furthest_point_sample_with_bounds``): the same rows and
     the same dA, the search of each query cut at need*512 points. SA1's
     train grouping when ``train_raw`` is false (TPU row 9)."""
     return _GroupFunction.apply(A, xyz, new_xyz, float(radius), int(nsample), need, LAUNCHES_GATED)

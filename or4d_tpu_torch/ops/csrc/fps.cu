@@ -1,4 +1,5 @@
-// Furthest point sampling, with optional per-chunk ball-query hit counts.
+// Furthest point sampling, with optional per-chunk ball-query hit counts, or
+// with the search bound those counts give.
 //
 // Replaces the TPU kernels `furthest_point_sample_pallas` and
 // `furthest_point_sample_with_counts` (or4d_tpu/ops/pallas_fps.py:200 and
@@ -11,173 +12,219 @@
 //     with d2 < r^2 in every 512-wide scan-order chunk, per radius — the
 //     distances the next step computes anyway, plus one last pass for the
 //     final query.
+// With bounds (the main path), the counts never leave the kernel: per radius
+// and query it writes need = #{chunks whose running count is below thr} + 1,
+// thr = min(nsample, total), which is `counts_to_bounds`
+// (or4d_tpu/ops/pallas_ball_query.py:587-602) on the same integer counts.
 // Distances are rounded like the TPU kernels: (dx*dx + dy*dy) + dz*dz with
-// every product and sum rounded on its own (no FMA contraction), so indices
-// and counts are bit-exact.
+// every product and sum rounded on its own (no FMA contraction), so indices,
+// counts and bounds are bit-exact.
 //
 // What bounds it on the H100: the npoint steps are sequential; each step is
-// one pass over the cloud plus a block-wide argmax, so at the main path's
-// shapes (8000 points, 512 steps) it is latency-bound by the two block
-// barriers per step, far from both the memory and the FP32 roofline.
-// Design: one 512-thread block per cloud (clouds are independent, so the
-// grid fills the card at serving batch sizes); the cloud's coordinates and
-// running min-distances live in registers (PPT points per thread, point
-// i = tid + k*512), so the loop never touches device memory except for the
-// selected point's coordinates (an L1 hit). Because the block is 512 wide,
-// a thread's k-th point lies in chunk k: per-chunk counts are one warp
-// ballot + popcount per (chunk, radius) and a 16-way sum after the barrier
-// the argmax needs anyway.
+// one pass over the cloud (8 rounded operations per distance, a min, an
+// argmax compare and a compare and add per radius) plus a block-wide argmax,
+// so it is issue- and latency-bound, far from both the memory and the FP32
+// roofline. Design:
+//  - One block per cloud, one warp per 512-point chunk (16 points a lane:
+//    lane l of warp w owns points w*512 + l + 32k). The cloud is staged in
+//    shared memory (padded to whole chunks with +inf: never a hit, never
+//    selected) and read there every step, three conflict-free loads a
+//    point; the running min-distances live in registers. About 60
+//    registers a thread let two 8000-point clouds share an SM, so one
+//    block's barrier and reductions overlap the other's distance pass
+//    (with the coordinates in registers too, ~100 registers held one block
+//    per SM, and each step's serial tail left the SM idle).
+//  - Counts: a lane counts its hits per radius in an integer; one
+//    `redux.sync` add per radius gives the warp's chunk count. No ballots
+//    and no shared memory per point.
+//  - Argmax: the distance as an order-preserving integer key; `redux.sync`
+//    max of the keys, then min of the indices holding it (lowest-index
+//    ties), per warp and then across the warps.
+//  - One block barrier per step: the per-warp candidates (and, with bounds,
+//    chunk counts) are double-buffered by step parity, and every warp
+//    reduces the candidates itself. The winner's coordinates come from the
+//    staged cloud, not from device memory.
+//  - Bounds: after the barrier one warp (rotating with the step) scans the
+//    chunk counts per radius with shuffles and writes need (int32).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 512;  // == the 512-point chunk width of the counts
-constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 512;    // the chunk width of the counts, one warp's points
+constexpr int kPPT = kChunk / 32;
+constexpr int kMaxWarps = 16;  // N <= 8192
 constexpr int kMaxRadii = 4;
-constexpr int kMaxPPT = 16;    // N <= 8192
 constexpr float kMagEps = 1e-3f;
 
 struct Radii {
   float r2[kMaxRadii];
-  int n;
+  int ns[kMaxRadii];
+  int* need[kMaxRadii];  // with bounds: per radius (B, npoint) int32
 };
 
 __device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// (d, i) beats (bd, bi): larger distance, ties to the lower index
-__device__ __forceinline__ void take_better(float& bd, int& bi, float d, int i) {
-  if (d > bd || (d == bd && i < bi)) {
-    bd = d;
-    bi = i;
-  }
+// a float's order as an unsigned integer (no NaN; -0 never occurs here)
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(kThreads, 1)
-fps_kernel(const float* __restrict__ xyz, int N, int npoint, Radii radii, int nch,
-           int* __restrict__ idx_out, float* __restrict__ counts_out, int B) {
-  __shared__ float s_d[kWarps];
-  __shared__ int s_i[kWarps];
-  __shared__ int s_sel;
-  __shared__ int s_cnt[kWarps][kMaxRadii * kMaxPPT];
+// NR radii; BOUNDS: need per radius (radii.need), else counts (NR, B,
+// npoint, nch) f32 when NR > 0
+template <int NR, bool BOUNDS>
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+fps_kernel(const float* __restrict__ xyz, int N, int npoint, Radii radii, int* __restrict__ idx_out,
+           float* __restrict__ counts_out, int B) {
+  extern __shared__ float s_xyz[];  // the cloud, (nw * 512, 3), +inf past N
+  __shared__ unsigned s_key[2][kMaxWarps];
+  __shared__ int s_idx[2][kMaxWarps];
+  __shared__ int s_cnt[2][NR > 0 ? NR : 1][kMaxWarps];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;  // == the number of chunks
   const float* p = xyz + (size_t)b * N * 3;
+  for (int i = tid; i < 3 * nw * kChunk; i += blockDim.x) s_xyz[i] = i < 3 * N ? p[i] : CUDART_INF_F;
+  __syncthreads();
 
-  float px[PPT], py[PPT], pz[PPT], md[PPT];
+  const int base = warp * kChunk + lane;
+  float md[kPPT];
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int i = tid + k * kThreads;
-    if (i < N) {
-      px[k] = p[3 * i];
-      py[k] = p[3 * i + 1];
-      pz[k] = p[3 * i + 2];
-      md[k] = sqdist(px[k], py[k], pz[k]) > kMagEps ? CUDART_INF_F : -1.0f;
-    } else {
-      px[k] = py[k] = pz[k] = 0.0f;
-      md[k] = -CUDART_INF_F;
-    }
+  for (int k = 0; k < kPPT; ++k) {
+    const int i = base + 32 * k;
+    md[k] = i < N ? (sqdist(s_xyz[3 * i], s_xyz[3 * i + 1], s_xyz[3 * i + 2]) > kMagEps ? CUDART_INF_F : -1.0f)
+                  : -CUDART_INF_F;
   }
   if (tid == 0) idx_out[(size_t)b * npoint] = 0;
 
-  const bool with_counts = radii.n > 0;
-  const int steps = npoint + (with_counts ? 1 : 0);
-  int sel = 0;
+  float sx = s_xyz[0], sy = s_xyz[1], sz = s_xyz[2];
+  const int steps = npoint + (NR > 0 ? 1 : 0);
   for (int j = 1; j < steps; ++j) {
+    const int par = j & 1;
     const bool last = j == npoint;  // counts only, for the final query
-    const float sx = p[3 * sel], sy = p[3 * sel + 1], sz = p[3 * sel + 2];
     float bd = -CUDART_INF_F;
-    int bi = 0x7fffffff;
+    int bk = 0;
+    int cnt[NR > 0 ? NR : 1];
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      const int i = tid + k * kThreads;
-      const bool in = i < N;
-      const float d2 = sqdist(px[k] - sx, py[k] - sy, pz[k] - sz);
-      if (with_counts && k < nch) {
-        for (int s = 0; s < radii.n; ++s) {
-          const unsigned m = __ballot_sync(0xffffffffu, in && d2 < radii.r2[s]);
-          if (lane == 0) s_cnt[warp][s * nch + k] = __popc(m);
-        }
-      }
-      if (in && !last) {
-        md[k] = fminf(md[k], d2);
-        take_better(bd, bi, md[k], i);
+    for (int s = 0; s < NR; ++s) cnt[s] = 0;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      const int i = base + 32 * k;
+      const float d2 = sqdist(s_xyz[3 * i] - sx, s_xyz[3 * i + 1] - sy, s_xyz[3 * i + 2] - sz);
+#pragma unroll
+      for (int s = 0; s < NR; ++s) cnt[s] += d2 < radii.r2[s] ? 1 : 0;
+      md[k] = fminf(md[k], d2);
+      if (md[k] > bd) {  // a lane's points rise with k: the first maximum is the lowest index
+        bd = md[k];
+        bk = k;
       }
     }
-    if (!last) {
+    // query j-1's hits in this warp's chunk, per radius
+    int cw[NR > 0 ? NR : 1];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        take_better(bd, bi, od, oi);
-      }
-      if (lane == 0) {
-        s_d[warp] = bd;
-        s_i[warp] = bi;
-      }
+    for (int s = 0; s < NR; ++s) cw[s] = __reduce_add_sync(0xffffffffu, cnt[s]);
+    if (!BOUNDS && NR > 0 && lane == 0) {
+      const int nch = nw;
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+        counts_out[(((size_t)s * B + b) * npoint + (j - 1)) * nch + warp] = (float)cw[s];
+    }
+    if (!BOUNDS && last) break;
+
+    // this warp's candidate: the largest running distance, lowest index
+    const unsigned key = order_key(bd);
+    const unsigned kmax = __reduce_max_sync(0xffffffffu, key);
+    const int imin = __reduce_min_sync(0xffffffffu, key == kmax ? base + 32 * bk : 0x7fffffff);
+    if (lane == 0) {
+      s_key[par][warp] = kmax;
+      s_idx[par][warp] = imin;
+#pragma unroll
+      for (int s = 0; s < NR; ++s) s_cnt[par][s][warp] = cw[s];
     }
     __syncthreads();
-    if (with_counts && tid < radii.n * nch) {
-      int c = 0;
+
+    if (BOUNDS && warp == j % nw) {
+      // per radius: inclusive scan of the chunk counts, thr = min(ns,
+      // total), need = chunks with a running count below thr, plus one
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) c += s_cnt[w][tid];
-      const int s = tid / nch, k = tid % nch;
-      counts_out[(((size_t)s * B + b) * npoint + (j - 1)) * nch + k] = (float)c;
+      for (int s = 0; s < NR; ++s) {
+        int v = lane < nw ? s_cnt[par][s][lane] : 0;
+#pragma unroll
+        for (int off = 1; off < kMaxWarps; off <<= 1) {
+          const int n = __shfl_up_sync(0xffffffffu, v, off);
+          if (lane >= off) v += n;
+        }
+        const int total = __shfl_sync(0xffffffffu, v, nw - 1);
+        const int thr = min(radii.ns[s], total);
+        const unsigned below = __ballot_sync(0xffffffffu, lane < nw && v < thr);
+        if (lane == 0) radii.need[s][(size_t)b * npoint + (j - 1)] = __popc(below) + 1;
+      }
     }
     if (last) break;
-    if (warp == 0) {
-      bd = lane < kWarps ? s_d[lane] : -CUDART_INF_F;
-      bi = lane < kWarps ? s_i[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        take_better(bd, bi, od, oi);
-      }
-      if (lane == 0) {
-        s_sel = bi;
-        idx_out[(size_t)b * npoint + j] = bi;
-      }
-    }
-    __syncthreads();
-    sel = s_sel;
+
+    // the block's winner, reduced by every warp from the candidates
+    const unsigned ck = lane < nw ? s_key[par][lane] : 0u;
+    const int ci = lane < nw ? s_idx[par][lane] : 0x7fffffff;
+    const unsigned bmax = __reduce_max_sync(0xffffffffu, ck);
+    const int sel = __reduce_min_sync(0xffffffffu, ck == bmax ? ci : 0x7fffffff);
+    if (tid == 0) idx_out[(size_t)b * npoint + j] = sel;
+    sx = s_xyz[3 * sel];
+    sy = s_xyz[3 * sel + 1];
+    sz = s_xyz[3 * sel + 2];
   }
 }
 
-template <int PPT>
-cudaError_t launch(const float* xyz, int B, int N, int npoint, Radii radii, int* idx, float* counts,
+template <int NR, bool BOUNDS>
+cudaError_t launch(const float* xyz, int B, int N, int npoint, const Radii& radii, int* idx, float* counts,
                    cudaStream_t stream) {
-  const int nch = (N + kThreads - 1) / kThreads;
-  fps_kernel<PPT><<<B, kThreads, 0, stream>>>(xyz, N, npoint, radii, nch, idx, counts, B);
+  const int nw = (N + kChunk - 1) / kChunk;
+  const size_t smem = (size_t)nw * kChunk * 3 * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fps_kernel<NR, BOUNDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  fps_kernel<NR, BOUNDS><<<B, nw * 32, smem, stream>>>(xyz, N, npoint, radii, idx, counts, B);
   return cudaGetLastError();
+}
+
+template <bool BOUNDS>
+cudaError_t launch_nr(int nradii, const float* xyz, int B, int N, int npoint, const Radii& radii, int* idx,
+                      float* counts, cudaStream_t stream) {
+  switch (nradii) {
+    case 1: return launch<1, BOUNDS>(xyz, B, N, npoint, radii, idx, counts, stream);
+    case 2: return launch<2, BOUNDS>(xyz, B, N, npoint, radii, idx, counts, stream);
+    case 3: return launch<3, BOUNDS>(xyz, B, N, npoint, radii, idx, counts, stream);
+    default: return launch<4, BOUNDS>(xyz, B, N, npoint, radii, idx, counts, stream);
+  }
 }
 
 }  // namespace
 
-// xyz (B, N, 3) f32 -> idx (B, npoint) i32 and, when nradii > 0, counts
-// (nradii, B, npoint, ceil(N/512)) f32. r2: host array of nradii squared
-// radii, already rounded to f32. Returns the CUDA error of the launch.
-extern "C" int or4d_fps(const float* xyz, int B, int N, int npoint, int nradii, const float* r2,
-                        int* idx, float* counts, void* stream) {
-  if (B <= 0 || N <= 0 || npoint <= 0 || N > kThreads * kMaxPPT || nradii < 0 || nradii > kMaxRadii ||
-      (nradii > 0 && counts == nullptr))
+// xyz (B, N, 3) f32 -> idx (B, npoint) i32 and, when nradii > 0, either
+// counts (nradii, B, npoint, ceil(N/512)) f32 or, with need != null, the
+// search bounds: need is a host array of nradii device pointers, each to a
+// (B, npoint) i32 output (counts null). r2: host array of nradii squared
+// radii, already rounded to f32; ns: host array of their nsamples (read
+// with need only). Returns the CUDA error of the launch.
+extern "C" int or4d_fps(const float* xyz, int B, int N, int npoint, int nradii, const float* r2, const int* ns,
+                        int* idx, float* counts, int* const* need, void* stream) {
+  if (B <= 0 || N <= 0 || npoint <= 0 || N > kChunk * kMaxWarps || nradii < 0 || nradii > kMaxRadii ||
+      (nradii > 0) != (counts != nullptr || need != nullptr) || (counts != nullptr && need != nullptr))
     return (int)cudaErrorInvalidValue;
   Radii radii{};
-  radii.n = nradii;
-  for (int s = 0; s < nradii; ++s) radii.r2[s] = r2[s];
+  for (int s = 0; s < nradii; ++s) {
+    radii.r2[s] = r2[s];
+    if (need != nullptr) {
+      if (need[s] == nullptr) return (int)cudaErrorInvalidValue;
+      radii.ns[s] = ns[s];
+      radii.need[s] = need[s];
+    }
+  }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (N <= kThreads) err = launch<1>(xyz, B, N, npoint, radii, idx, counts, st);
-  else if (N <= 2 * kThreads) err = launch<2>(xyz, B, N, npoint, radii, idx, counts, st);
-  else if (N <= 4 * kThreads) err = launch<4>(xyz, B, N, npoint, radii, idx, counts, st);
-  else if (N <= 8 * kThreads) err = launch<8>(xyz, B, N, npoint, radii, idx, counts, st);
-  else err = launch<16>(xyz, B, N, npoint, radii, idx, counts, st);
-  return (int)err;
+  if (nradii == 0) return (int)launch<0, false>(xyz, B, N, npoint, radii, idx, nullptr, st);
+  if (need != nullptr) return (int)launch_nr<true>(nradii, xyz, B, N, npoint, radii, idx, nullptr, st);
+  return (int)launch_nr<false>(nradii, xyz, B, N, npoint, radii, idx, counts, st);
 }

@@ -63,7 +63,9 @@
 //    shared memory; out is rounded once.
 //  A warpgroup `wgmma` over 64 rows would need four warps to agree on a
 //  tile of several queries and an hmid tile in shared memory; per-warp m16
-//  tiles keep each warp's queries independent.
+//  tiles keep each warp's queries independent. The weight staging and the
+//  tile's device code (raw-mode layer 1, the hmid repack, layer 2 and the
+//  epilogue) are sa_mma_tile.cuh, which the serving SA1 kernel runs too.
 //
 // float32, `sa_fp32_kernel` (card-vs-CPU checks), the first design: one warp
 // per query, 8 warps over 32 queries of one cloud, W1/W0/a1/b1 in shared
@@ -73,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sa_mma_tile.cuh"
 
 namespace {
 
@@ -117,8 +121,8 @@ __device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+using sa_tile::align16;
+using sa_tile::round_up;
 
 // The first `ns` hits of query (qx, qy, qz) among pts[0, limit) in scan
 // order into s_idx, 64 points per step (two independent distances a lane,
@@ -282,19 +286,20 @@ __global__ void __launch_bounds__(kFpWarps * 32) sa_fp32_kernel(SAArgs a) {
 // ---------------------------------------------------------------- bfloat16
 
 // Byte offsets of the bf16 body's dynamic shared memory (ops/sa_group_mlp.py
-// `_mma_smem_bytes` computes the same total).
+// `_mma_smem_bytes` computes the same total): the staged weights
+// (sa_mma_tile.cuh), per warp its hit list, Bq row and running max, a
+// control word, then the staged xyz and A plane.
 struct MmaLayout {
-  size_t w1t, w0t, aff, warps, warp_bytes, idx, bq, best, ctl, xyz, plane, total;
+  size_t warps, warp_bytes, idx, bq, best, ctl, xyz, plane, total;
+  sa_tile::WeightLayout w;
 };
 
 __host__ __device__ inline MmaLayout mma_layout(int N, int ns, int craw, int C1, int C2, int halves, bool raw,
                                                 bool stage_xyz, bool stage_plane) {
-  const int C1p = round_up(C1, 16), C2p = round_up(C2, 8), KT = raw ? (craw + 15) / 16 : 0;
+  const int C1p = round_up(C1, 16), C2p = round_up(C2, 8);
   MmaLayout L;
-  L.w1t = 0;
-  L.w0t = L.w1t + align16((size_t)C2p * (C1p + 8) * 2);
-  L.aff = L.w0t + (raw ? align16((size_t)halves * C1p * (KT * 16 + 8) * 2) : 0);
-  L.warps = L.aff + align16((size_t)(2 * C1p + 2 * C2p) * 4);
+  L.w = sa_tile::weight_layout(craw, C1, C2, halves, raw);
+  L.warps = L.w.total;
   L.idx = 0;
   L.bq = L.idx + align16((size_t)ns * 4);
   L.best = L.bq + align16((size_t)C1p * 4);
@@ -305,24 +310,6 @@ __host__ __device__ inline MmaLayout mma_layout(int N, int ns, int craw, int C1,
   L.total = L.plane + (stage_plane ? align16((size_t)N * C1 * 2) : 0);
   return L;
 }
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&af)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(af[0]), "r"(af[1]), "r"(af[2]), "r"(af[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 (lo at the lower address) as one 32-bit fragment register
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -359,15 +346,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) sa_mma_kernel(SAArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C1 = a.C1, C2 = a.C2, C0 = a.C0, ns = a.ns, N = a.N, M = a.M;
   const int halves = a.paired ? 2 : 1, craw = C0 + a.paired;
-  const int C1p = round_up(C1, 16), C2p = round_up(C2, 8);
-  const int KT = RAW ? (craw + 15) / 16 : 1, KW = KT * 16 + 8;  // W0 pair k-tiles, row stride
-  const int KT1 = C1p / 16, NT2 = C2p / 8, W1S = C1p + 8;        // W1^T row stride
   const MmaLayout L = mma_layout(N, ns, craw, C1, C2, halves, RAW, a.stage_xyz, a.stage_plane);
-  __nv_bfloat16* s_w1t = reinterpret_cast<__nv_bfloat16*>(smem + L.w1t);
-  __nv_bfloat16* s_w0t = reinterpret_cast<__nv_bfloat16*>(smem + L.w0t);
-  // per column pair (c, c+1): {a0[c], a0[c+1], b0[c], b0[c+1]}, then a1/b1 alike
-  float4* s_ab0 = reinterpret_cast<float4*>(smem + L.aff);
-  float4* s_ab1 = s_ab0 + C1p / 2;
+  const sa_tile::Weights w = sa_tile::weights_at(smem, L.w, craw, C1, C2, RAW);
+  const int C1p = w.C1p, C2p = w.C2p;
   int* s_ctl = reinterpret_cast<int*>(smem + L.ctl);  // [next query, search bound]
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -383,33 +364,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) sa_mma_kernel(SAArgs a) {
   for (int i = tid; i < nq; i += nthr)
     lim = max(lim, a.need != nullptr ? min(N, max(a.need[(size_t)b * M + q0 + i], 0) * kChunk) : N);
   if (lim > 0) atomicMax(&s_ctl[1], lim);
-
-  // weights: W1^T and the W0 pair K-contiguous, zero-padded to the tiles
-  const __nv_bfloat16* W1 = static_cast<const __nv_bfloat16*>(a.W1);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  for (int i = tid; i < C1p * C2p; i += nthr) {
-    const int k = i / C2p, n = i % C2p;
-    s_w1t[n * W1S + k] = (k < C1 && n < C2) ? W1[k * C2 + n] : zero;
-  }
-  if (RAW) {
-    const __nv_bfloat16* W0 = static_cast<const __nv_bfloat16*>(a.W0);
-    for (int i = tid; i < halves * C1p * KT * 16; i += nthr) {
-      const int h = i / (C1p * KT * 16), n = (i / (KT * 16)) % C1p, k = i % (KT * 16);
-      // half 1 reads raw channel C0 in place of channel C0-1
-      const int src = h == 0 ? (k < C0 ? k : -1) : (k < C0 - 1 ? k : (k == C0 ? C0 - 1 : -1));
-      s_w0t[(h * C1p + n) * KW + k] = (src >= 0 && n < C1) ? W0[src * C1 + n] : zero;
-    }
-  }
-  for (int c = 2 * tid; c < C1p; c += 2 * nthr) {
-    const bool v0 = c < C1, v1 = c + 1 < C1;
-    s_ab0[c / 2] = make_float4(v0 ? a.a0[c] : 0.0f, v1 ? a.a0[c + 1] : 0.0f, v0 ? a.b0[c] : 0.0f,
-                               v1 ? a.b0[c + 1] : 0.0f);
-  }
-  for (int c = 2 * tid; c < C2p; c += 2 * nthr) {
-    const bool v0 = c < C2, v1 = c + 1 < C2;
-    s_ab1[c / 2] = make_float4(v0 ? a.a1[c] : 0.0f, v1 ? a.a1[c + 1] : 0.0f, v0 ? a.b1[c] : 0.0f,
-                               v1 ? a.b1[c + 1] : 0.0f);
-  }
+  sa_tile::stage_weights(smem, L.w, static_cast<const __nv_bfloat16*>(a.W1),
+                         RAW ? static_cast<const __nv_bfloat16*>(a.W0) : nullptr, C0, a.paired, a.a0, a.b0, a.a1,
+                         a.b1, C1, C2, tid, nthr);
   __syncthreads();
   lim = s_ctl[1];
 
@@ -465,8 +422,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) sa_mma_kernel(SAArgs a) {
     const int nitems = (max(nreal, 1) + 15) / 16 * halves;
     for (int u = 0; u < nitems; u += 2) {
       const bool two = u + 1 < nitems;
-      // hmid of each item as layer 2's A fragments: k-tile kk holds columns
-      // kk*16..+15
+      // hmid of each item as layer 2's A fragments
       uint32_t hf[2][KTM][4];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
@@ -477,112 +433,45 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) sa_mma_kernel(SAArgs a) {
         if (k0 >= nreal) k0 = 0;
         if (k1 >= nreal) k1 = 0;
         const int p0 = nreal > 0 ? s_idx[k0] : -1, p1 = nreal > 0 ? s_idx[k1] : -1;
-
-        // raw mode: the slots' raw channels as A fragments, K zero-padded
-        uint32_t rf[2][4];
+        if (RAW) {
+          // the slots' raw channels as A fragments, K zero-padded
+          uint32_t rf[2][4];
 #pragma unroll
-        for (int kt = 0; kt < 2; ++kt) {
+          for (int kt = 0; kt < 2; ++kt) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r) rf[kt][r] = 0u;
-          if (RAW && kt < KT) {
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int p = (r & 1) ? p1 : p0;
-              const int ch = kt * 16 + t * 2 + ((r & 2) ? 8 : 0);
-              uint32_t lo = 0u, hi = 0u;
-              if (p >= 0 && ch < craw) lo = rawb[(size_t)ch * N + p];
-              if (p >= 0 && ch + 1 < craw) hi = rawb[(size_t)(ch + 1) * N + p];
-              rf[kt][r] = lo | (hi << 16);
-            }
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < KTM; ++kk) {
-          if (kk < KT1) {
-            float v[2][4];  // two n-tiles of 8 columns, C-fragment order
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const int c = kk * 16 + nt * 8 + t * 2;
-              if (RAW) {
-                float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-                const __nv_bfloat16* wp = s_w0t + (size_t)(h * C1p + c - t * 2 + g) * KW + t * 2;
-#pragma unroll
-                for (int kt = 0; kt < 2; ++kt)
-                  if (kt < KT) mma16816(acc, rf[kt], ld_pair(wp + kt * 16), ld_pair(wp + kt * 16 + 8));
-#pragma unroll
-                for (int r = 0; r < 4; ++r) v[nt][r] = round_bf16(acc[r]);
-              } else {
-                plane_pair(Ab, p0, c, C1, v[nt][0], v[nt][1]);
-                plane_pair(Ab, p1, c, C1, v[nt][2], v[nt][3]);
-              }
-              const float2 bq = *reinterpret_cast<const float2*>(s_bq + c);
-              const float4 ab = s_ab0[c / 2];
+            for (int r = 0; r < 4; ++r) rf[kt][r] = 0u;
+            if (kt < w.KT) {
 #pragma unroll
               for (int r = 0; r < 4; ++r) {
-                const bool odd = r & 1;
-                v[nt][r] = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(v[nt][r], odd ? bq.y : bq.x), odd ? ab.y : ab.x),
-                                           odd ? ab.w : ab.z), 0.0f);
-              }
-            }
-            hf[s][kk][0] = pack_bf16(v[0][0], v[0][1]);
-            hf[s][kk][1] = pack_bf16(v[0][2], v[0][3]);
-            hf[s][kk][2] = pack_bf16(v[1][0], v[1][1]);
-            hf[s][kk][3] = pack_bf16(v[1][2], v[1][3]);
-          }
-        }
-      }
-
-      // layer 2 in passes of kNChunk n-tiles; the affine per element, then
-      // the max over each item's 16 rows
-      for (int nc = 0; nc < NT2; nc += kNChunk) {
-        float acc[2][kNChunk][4];
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int j = 0; j < kNChunk; ++j)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) acc[s][j][r] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KTM; ++kk) {
-          if (kk < KT1) {
-#pragma unroll
-            for (int j = 0; j < kNChunk; ++j) {
-              if (nc + j < NT2) {
-                const __nv_bfloat16* wp = s_w1t + (size_t)((nc + j) * 8 + g) * W1S + kk * 16 + t * 2;
-                const uint32_t b0 = ld_pair(wp), b1 = ld_pair(wp + 8);
-                mma16816(acc[0][j], hf[0][kk], b0, b1);
-                if (two) mma16816(acc[1][j], hf[1][kk], b0, b1);
+                const int p = (r & 1) ? p1 : p0;
+                const int ch = kt * 16 + t * 2 + ((r & 2) ? 8 : 0);
+                uint32_t lo = 0u, hi = 0u;
+                if (p >= 0 && ch < craw) lo = rawb[(size_t)ch * N + p];
+                if (p >= 0 && ch + 1 < craw) hi = rawb[(size_t)(ch + 1) * N + p];
+                rf[kt][r] = lo | (hi << 16);
               }
             }
           }
-        }
+          sa_tile::layer1_raw<KTM>(w, rf, h, s_bq, hf[s], g, t);
+        } else {
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          if (s == 1 && !two) break;
-          float* best = s_best + ((u + s) % halves) * C2p;
+          for (int kk = 0; kk < KTM; ++kk) {
+            if (kk < w.KT1) {
+              float v[2][4];  // two n-tiles of 8 columns, C-fragment order
 #pragma unroll
-          for (int j = 0; j < kNChunk; ++j) {
-            if (nc + j < NT2) {
-              const int col = (nc + j) * 8 + t * 2;
-              const float4 ab = s_ab1[col / 2];
-              float o[2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float sc = e ? ab.y : ab.x, of = e ? ab.w : ab.z;
-                o[e] = fmaxf(fmaxf(__fadd_rn(__fmul_rn(acc[s][j][e], sc), of), 0.0f),
-                             fmaxf(__fadd_rn(__fmul_rn(acc[s][j][e + 2], sc), of), 0.0f));
-#pragma unroll
-                for (int sh = 4; sh < 32; sh <<= 1) o[e] = fmaxf(o[e], __shfl_xor_sync(0xffffffffu, o[e], sh));
+              for (int nt = 0; nt < 2; ++nt) {
+                const int c = kk * 16 + nt * 8 + t * 2;
+                plane_pair(Ab, p0, c, C1, v[nt][0], v[nt][1]);
+                plane_pair(Ab, p1, c, C1, v[nt][2], v[nt][3]);
+                sa_tile::hmid_affine(v[nt], s_bq, w.ab0, c);
               }
-              if (g == 0) {
-                float2* bp = reinterpret_cast<float2*>(best + col);
-                const float2 old = *bp;
-                *bp = make_float2(fmaxf(old.x, o[0]), fmaxf(old.y, o[1]));
-              }
+              sa_tile::pack_hmid(v, hf[s][kk]);
             }
           }
         }
       }
+      sa_tile::layer2_max<KTM, kNChunk>(w, hf, two, s_best + (u % halves) * C2p, s_best + ((u + 1) % halves) * C2p,
+                                        g, t);
     }
     __syncwarp();
     __nv_bfloat16* out = outb + row * (size_t)(C2 * halves);

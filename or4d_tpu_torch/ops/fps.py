@@ -4,7 +4,10 @@ PyTorch version.
 Replaces ``furthest_point_sample_pallas`` (or4d_tpu/ops/pallas_fps.py:200)
 and ``furthest_point_sample_with_counts`` (pallas_fps.py:156). What bounds
 the kernel on the H100 and what its design does about it is in the header of
-``csrc/fps.cu``.
+``csrc/fps.cu``. :func:`furthest_point_sample_with_bounds` is the model
+paths' variant: the same kernel turns the counts into the fused SA and
+grouping kernels' search bound ``need`` itself, so the counts never reach
+device memory.
 
 Semantics (reference sampling_gpu.cu:69-173): index 0 first; a running
 min-distance over all points; the point with the largest running distance is
@@ -24,13 +27,16 @@ import ctypes
 import numpy as np
 import torch
 
+from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
+
 CHUNK = 512  # scan-order chunk width of the hit counts
 _MAG_EPS = float(np.float32(1e-3))
 _MAX_RADII = 4
 _MAX_N = 8192  # 512 threads x 16 points in registers
 
-# kernel launches, per variant: "fps" (no counts) and "fps_counts"
-LAUNCHES = {"fps": 0, "fps_counts": 0}
+# kernel launches, per variant: "fps" (no counts), "fps_counts" and
+# "fps_bounds" (the search bounds from the counts)
+LAUNCHES = {"fps": 0, "fps_counts": 0, "fps_bounds": 0}
 
 
 def _r2(radius: float) -> float:
@@ -80,41 +86,52 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int, radii: tuple[flo
     return (idx, tuple(counts)) if radii else idx
 
 
-def _launch(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...]):
+def _launch(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...], nsamples: tuple[int, ...] | None = None):
+    """The kernel: idx, plus per radius the counts, or with ``nsamples``
+    the bounds need (B, npoint) int32."""
     from or4d_tpu_torch.ops._build import library
 
     B, N, _ = xyz.shape
     if N > _MAX_N:
         raise ValueError(f"the FPS kernel takes at most {_MAX_N} points per cloud, got {N}")
-    lib = library("fps")
-    fn = lib.or4d_fps
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = library("fps").or4d_fps
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I, I, I, P, P, P, P, P, P]
+    fn.restype = I
     dev = xyz.device
     idx = torch.empty(B, npoint, dtype=torch.int32, device=dev)
     nch = -(-N // CHUNK)
-    counts = torch.empty(len(radii), B, npoint, nch, dtype=torch.float32, device=dev) if radii else None
+    bounds = nsamples is not None
+    counts = torch.empty(len(radii), B, npoint, nch, dtype=torch.float32, device=dev) if radii and not bounds else None
+    # one tensor per scale, so a caller that keeps one scale's bound keeps no other
+    need = tuple(torch.empty(B, npoint, dtype=torch.int32, device=dev) for _ in radii) if bounds else None
     r2 = (ctypes.c_float * _MAX_RADII)(*[_r2(r) for r in radii])
+    ns = (ctypes.c_int * _MAX_RADII)(*(nsamples or ()))
+    need_ptrs = (P * _MAX_RADII)(*[n.data_ptr() for n in need]) if bounds else None
     if B > 0:
         with torch.cuda.device(dev):
-            err = fn(xyz.data_ptr(), B, N, npoint, len(radii), ctypes.cast(r2, ctypes.c_void_p),
-                     idx.data_ptr(), counts.data_ptr() if counts is not None else None,
+            err = fn(xyz.data_ptr(), B, N, npoint, len(radii), ctypes.cast(r2, P), ctypes.cast(ns, P), idx.data_ptr(),
+                     None if counts is None else counts.data_ptr(),
+                     None if need_ptrs is None else ctypes.cast(need_ptrs, P),
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fps kernel launch failed: CUDA error {err}")
-        LAUNCHES["fps_counts" if radii else "fps"] += 1
+        LAUNCHES["fps_bounds" if bounds else "fps_counts" if radii else "fps"] += 1
+    if bounds:
+        return idx, need
     return (idx, tuple(counts.unbind(0))) if radii else idx
 
 
-def _fps(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...]):
+def _fps(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...], nsamples: tuple[int, ...] | None = None):
     radii = tuple(float(r) for r in radii)
     _check(xyz, npoint, radii)
     if xyz.device.type == "cpu":
+        if nsamples is not None:
+            return furthest_point_sample_with_bounds_plain(xyz, npoint, tuple(zip(radii, nsamples)))
         return furthest_point_sample_plain(xyz, npoint, radii)
     if xyz.device.type != "cuda":
         raise ValueError(f"furthest_point_sample: unsupported device {xyz.device}")
-    return _launch(xyz, npoint, radii)
+    return _launch(xyz, npoint, radii, nsamples)
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -128,3 +145,22 @@ def furthest_point_sample_with_counts(xyz: torch.Tensor, npoint: int, radii: tup
     if not radii:
         raise ValueError("furthest_point_sample_with_counts needs at least one radius")
     return _fps(xyz, npoint, tuple(radii))
+
+
+def furthest_point_sample_with_bounds_plain(xyz: torch.Tensor, npoint: int, scales: tuple[tuple[float, int], ...]):
+    """The plain version: the plain FPS counts, then ``counts_to_bounds``."""
+    idx, counts = furthest_point_sample_plain(xyz, npoint, tuple(r for r, _ns in scales))
+    return idx, tuple(need.int() for need, _thr in counts_to_bounds(scales, counts))
+
+
+def furthest_point_sample_with_bounds(xyz: torch.Tensor, npoint: int, scales: tuple[tuple[float, int], ...]):
+    """FPS indices and, per (radius, nsample) scale, the search bound need
+    (B, npoint) int32 of each selected query: the number of 512-point
+    scan-order chunks that hold its first min(nsample, hits) hits (1 when it
+    has none), as ``counts_to_bounds`` of the counts gives it."""
+    if not scales:
+        raise ValueError("furthest_point_sample_with_bounds needs at least one scale")
+    nsamples = tuple(int(ns) for _r, ns in scales)
+    if min(nsamples) < 1:
+        raise ValueError(f"nsample must be >= 1, got {scales}")
+    return _fps(xyz, npoint, tuple(r for r, _ns in scales), nsamples)

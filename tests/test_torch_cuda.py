@@ -13,7 +13,8 @@ import torch
 
 from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
 from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
-from or4d_tpu_torch.ops.fps import furthest_point_sample, furthest_point_sample_with_counts
+from or4d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample_with_bounds,
+                                    furthest_point_sample_with_bounds_plain, furthest_point_sample_with_counts)
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
 from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
 from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale, ball_query_multiscale_plain
@@ -56,6 +57,39 @@ def test_fps_counts_kernel_exact(card, N, radii):
     torch.testing.assert_close(idx.cpu(), widx, rtol=0, atol=0)
     for c, w in zip(counts, wcounts):
         torch.testing.assert_close(c.cpu(), w, rtol=0, atol=0)
+
+
+def _clustered(seed, B, N):
+    """Duplicate points at a few sites, near-origin points and one far
+    point: FPS ties, queries with fewer hits than nsample."""
+    rng = np.random.default_rng(seed)
+    sites = (rng.standard_normal((B, 60, 3)) * 0.8).astype(np.float32)
+    xyz = np.take_along_axis(sites, rng.integers(0, 60, (B, N))[..., None].repeat(3, -1), axis=1)
+    xyz[:, 7:12] = rng.uniform(-0.01, 0.01, (B, 5, 3))
+    xyz[:, N - 3] = 5.0
+    return torch.from_numpy(np.ascontiguousarray(xyz))
+
+
+@pytest.mark.parametrize("case", ["n1100", "n4000", "n8000", "clustered_n8000"])
+def test_fps_bounds_kernel_exact(card, case):
+    """The kernel's idx and need against the plain FPS counts followed by
+    counts_to_bounds, bit for bit, with SA1's scales."""
+    N = int(case.split("n")[-1])
+    xyz = _clustered(N, 2, N) if case.startswith("clustered") else _cloud(N + 11, 2, N)
+    scales = ((0.1, 16), (0.2, 32))
+    want_idx, want_need = furthest_point_sample_with_bounds_plain(xyz, 512, scales)
+    reset_launch_counts()
+    idx, need = furthest_point_sample_with_bounds(xyz.to(card), 512, scales)
+    assert launch_counts()["fps.fps_bounds"] == 1 and launch_counts()["fps.fps_counts"] == 0
+    torch.testing.assert_close(idx.cpu(), want_idx, rtol=0, atol=0)
+    for g, w in zip(need, want_need):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    # the counts variant of the same kernel agrees with the same plain counts
+    cidx, counts = furthest_point_sample_with_counts(xyz.to(card), 512, (0.1, 0.2))
+    torch.testing.assert_close(cidx.cpu(), want_idx, rtol=0, atol=0)
+    for g, (w, _thr) in zip(need, counts_to_bounds(scales, counts)):
+        torch.testing.assert_close(g, w.int(), rtol=0, atol=0)
 
 
 def _sa_inputs(seed, B, N, M, C0, C1, C2, paired, dtype, raw_mode=True, radius=0.2, ns=32):
@@ -384,3 +418,80 @@ def test_serving_wrappers_raise_outside_limits(card):
         serving_sa1_mlp(torch.zeros(2, 16, 8, 9, device=card), *args[1:])
     with pytest.raises(ValueError):  # planes off a 16-byte boundary
         serving_sa1_mlp(torch.zeros(2 * 16 * 8 * 8 + 1, device=card)[1:].view(2, 16, 8, 8), *args[1:])
+
+
+# serving against cold: the serving SA1 kernel (row 7) on the cache of a
+# cloud against the cold fused SA kernel in raw mode (row 3) on the cloud,
+# unpaired, with the same FPS centroids and weights: bit for bit in bfloat16
+# (one tile code, sa_mma_tile.cuh)
+
+
+def _sa1_weights(seed, C0, C1, C2, M, B, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return dict(Bq=(torch.randn(B, M, C1, generator=g) * 0.5).to(dtype),
+                W0=(torch.randn(C0, C1, generator=g) / C0 ** 0.5).to(dtype), a0=torch.rand(C1, generator=g) + 0.5,
+                b0=torch.randn(C1, generator=g) * 0.2, W1=(torch.randn(C1, C2, generator=g) / C1 ** 0.5).to(dtype),
+                a1=torch.randn(C2, generator=g), b1=torch.randn(C2, generator=g) * 0.2)  # a1 of both signs
+
+
+def _serving_vs_cold(card, N, C0, dtype, B=3):
+    from or4d_tpu_torch.serving import build_sa1_cache
+
+    scales = ((0.1, 16, 64), (0.2, 32, 128))  # SA1: (radius, nsample, C2), C1 64
+    rng = np.random.default_rng(N + C0)
+    pc = (rng.standard_normal((B, N, C0)) * 0.5).astype(np.float32)
+    pc[:, :, 3:] = rng.uniform(0, 1, (B, N, C0 - 3))
+    pc = torch.from_numpy(pc).to(card)
+    cache = build_sa1_cache(pc, 512, tuple((r, ns) for r, ns, _c2 in scales), dtype)
+    xyz = pc[..., :3].contiguous()
+    _idx, needs = furthest_point_sample_with_bounds(xyz, 512, tuple((r, ns) for r, ns, _c2 in scales))
+    raw = pc.to(dtype).transpose(1, 2).contiguous()  # (B, C0, N), as the cold SA stage builds it
+    diffs = []
+    for si, (r, ns, C2) in enumerate(scales):
+        w = {k: v.to(card) for k, v in _sa1_weights(si, C0, 64, C2, 512, B, dtype).items()}
+        reset_launch_counts()
+        served = serving_sa1_mlp(cache.grouped[si], w["Bq"], w["W0"], w["a0"], w["b0"], w["W1"], w["a1"], w["b1"])
+        cold = sa_group_mlp(xyz, cache.new_xyz, r, ns, w["Bq"], w["a0"], w["b0"], w["W1"], w["a1"], w["b1"],
+                            raw=raw, W0=w["W0"], need=needs[si])
+        counts = launch_counts()
+        assert counts["serving_sa1.mlp"] == 1 and counts["sa_group_mlp.raw"] == 1
+        assert float(served.float().abs().max()) > 0
+        diffs.append(float((served.float() - cold.float()).abs().max()))
+    return diffs
+
+
+@pytest.mark.parametrize("N,C0", [(4000, 6), (8000, 7)])
+def test_serving_sa1_equals_cold_sa1_in_bf16(card, N, C0):
+    """Object crops (N 4000, C0 6) and relation crops (N 8000, C0 7), both
+    SA1 scales: max |diff| 0."""
+    assert _serving_vs_cold(card, N, C0, torch.bfloat16) == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("N,C0", [(4000, 6), (8000, 7)])
+def test_serving_sa1_against_cold_sa1_in_f32(card, N, C0):
+    """The same in float32 (the FP32-pipe bodies): reported, within 1e-5."""
+    diffs = _serving_vs_cold(card, N, C0, torch.float32)
+    print(f"f32 serving vs cold SA1, N {N}, C0 {C0}: max |diff| per scale {diffs}")
+    assert max(diffs) <= 1e-5
+
+
+def test_serving_matches_cold_forward_in_bf16(card):
+    """End to end: SGPN log-probs in bfloat16, serving (cached SA1) against
+    the cold unpaired forward, within 1e-4."""
+    from or4d_tpu_torch.config import DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.serving import _strip_points, build_sgpn_sa1_caches
+
+    batch = SceneBatch.stack(make_scene_samples(2, seed=3, n_objects=5, ds=DatasetConfig(), points_per_obj=2000))
+    pack = SlotPack.build(batch).to(card)
+    model = SGPN(compute_dtype=torch.bfloat16, device=card, seed=4)
+    with torch.no_grad():
+        caches = build_sgpn_sa1_caches(model, batch.to(card), pack)
+        served = model(_strip_points(batch).to(card), pack, sa1_caches=caches)
+        cold = model(batch.to(card), pack)
+    for name in ("rel_logprobs", "obj_logprobs"):
+        s, c = getattr(served, name).float(), getattr(cold, name).float()
+        assert torch.isfinite(s).all()
+        assert float((s - c).abs().max()) <= 1e-4, name

@@ -1,6 +1,7 @@
 """The fused eval SA kernel's tile plan and the identities its tensor-core
 body relies on, on the CPU (``or4d_tpu_torch/ops/sa_group_mlp.py``,
-``csrc/sa_group_mlp.cu``).
+``csrc/sa_group_mlp.cu``), and the serving SA1 kernel's plan, which runs the
+same tile (``ops/serving_sa1_mlp.py``, ``csrc/serving_sa1_mlp.cu``).
 
 The plan is pure Python: queries per tile, tile passes per query, what is
 staged in shared memory and how many bytes, at the main path's shapes and at
@@ -18,6 +19,7 @@ import torch
 from or4d_tpu_torch.ops import sa_group_mlp as sgm
 from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
 from or4d_tpu_torch.ops.sa_group_mlp import MAX_SMEM, sa_group_mlp_plain, tile_plan
+from or4d_tpu_torch.ops.serving_sa1_mlp import serving_plan, serving_sa1_mlp_plain
 
 BF16 = torch.bfloat16
 
@@ -198,3 +200,58 @@ def test_paired_halves_are_one_product_with_the_w0_pair(dtype):
     rev = dot(raw.double(), W0.double(), list(range(C0 - 1)) + [C0])
     torch.testing.assert_close(both[..., :C1], fwd, rtol=0, atol=0)
     torch.testing.assert_close(both[..., C1:], rev, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------- serving plan
+
+# (ns, C0, C1, C2) of the serving path's SA1 scales -> (tiles per query,
+# queries per warp pass, shared-memory bytes) of the bfloat16 body
+SERVING_MAIN_PATH = {
+    "objects_ns16": ((16, 6, 64, 64), (1, 2, 21504)),
+    "objects_ns32": ((32, 6, 64, 128), (2, 1, 35328)),
+    "relations_ns16": ((16, 7, 64, 64), (1, 2, 21504)),
+    "relations_ns32": ((32, 7, 64, 128), (2, 1, 35328)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVING_MAIN_PATH))
+def test_serving_plan_at_main_path_shapes(case):
+    shape, (tiles, qpu, smem) = SERVING_MAIN_PATH[case]
+    plan = serving_plan(*shape, BF16)
+    assert (plan.body, plan.tiles_per_query, plan.queries_per_unit, plan.smem_bytes) == ("mma", tiles, qpu, smem)
+    f32 = serving_plan(*shape, torch.float32)
+    assert f32.body == "fp32" and f32.smem_bytes <= MAX_SMEM
+
+
+def test_serving_plan_limits():
+    for dtype in (BF16, torch.float32):
+        plan = serving_plan(128, 8, 128, 128, dtype)
+        assert plan.smem_bytes <= MAX_SMEM
+        if dtype == BF16:
+            assert (plan.tiles_per_query, plan.queries_per_unit) == (8, 1)
+        for shape in ((129, 6, 64, 64), (16, 9, 64, 64), (16, 6, 129, 64), (16, 6, 64, 129), (0, 6, 64, 64)):
+            with pytest.raises(ValueError):
+                serving_plan(*shape, dtype)
+    with pytest.raises(ValueError):
+        serving_plan(16, 6, 64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("ns", [5, 16, 20])
+def test_serving_tiles_padded_with_slot_zero_change_nothing(dtype, ns):
+    """The serving kernel's rows: ceil(ns/16) 16-row tiles per query, rows
+    past ns repeating slot 0, and channels >= C0 of a slot masked: the
+    plain version on planes padded so equals it on the planes as cached."""
+    g = torch.Generator().manual_seed(ns)
+    R, M, C0, C1, C2 = 2, 9, 6, 32, 24
+    planes = torch.zeros(R, M, ns, 8)
+    planes[..., :C0] = torch.randn(R, M, ns, C0, generator=g)
+    args = [(torch.randn(R, M, C1, generator=g) * 0.5).to(dtype), (torch.randn(C0, C1, generator=g) / 3).to(dtype),
+            torch.rand(C1, generator=g) + 0.5, torch.randn(C1, generator=g) * 0.2,
+            (torch.randn(C1, C2, generator=g) / 6).to(dtype), torch.randn(C2, generator=g),
+            torch.randn(C2, generator=g) * 0.2]  # a1 of both signs
+    want = serving_sa1_mlp_plain(planes.to(dtype), *args)
+    rows = torch.arange(-(-ns // 16) * 16)
+    tiled = planes[:, :, torch.where(rows < ns, rows, torch.zeros_like(rows))].clone()
+    tiled[..., C0:] = torch.randn(tiled[..., C0:].shape, generator=g)  # masked by the kernel, sliced here
+    torch.testing.assert_close(serving_sa1_mlp_plain(tiled.to(dtype).contiguous(), *args), want, rtol=0, atol=0)
