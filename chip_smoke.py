@@ -11,8 +11,8 @@ non-zero, and nothing runs on the CPU except the CPU reference passes of the
 slice and train phases.
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit.
-2. build   — nvcc builds every kernel source; the ptxas register, shared
-             memory and spill summary per kernel, and per kernel the count
+2. build   — nvcc builds every kernel source; per kernel its registers,
+             shared memory and spill bytes (ptxas -v), and per kernel the count
              of tensor-core instructions (HMMA) in its SASS (cuobjdump): the
              bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
              must have them.
@@ -40,7 +40,8 @@ slice and train phases.
              ``no_gt`` train step on each SA1 path (cut to 64 clouds), in
              float32 and bfloat16: forwards exactly, dA within 1e-5 and dW0
              within 1e-4 of their largest value (another summation order),
-             plus one bf16 ulp in bfloat16. The bounds pre-pass on the
+             plus one bf16 ulp in bfloat16; row 5's backward called twice
+             must agree bit for bit. The bounds pre-pass on the
              ``train_raw=False`` step's SA1 geometry: exactly its plain
              version, and the need and hit totals of the FPS kernel's counts.
 7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes, on
@@ -58,10 +59,16 @@ slice and train phases.
              2 that fits), the float32 step's device time by kernel
              (torch.profiler), and each grouping kernel's ms per step on the
              step's own inputs beside its plain version and its bound (rows
-             5 and 6 from the raw step, row 9 from the other). Then the
-             bounds pre-pass on the ``train_raw=False`` float32 step's full
-             SA1 geometry (its own path: counters zeroed before, read after),
-             and its ms beside its plain version and its bound.
+             5 and 6 from the raw step, row 9 from the other), each first
+             held against its plain version on those full inputs as in
+             check_train (``check_train_full``: the launch layouts the
+             plans pick for the step's own sizes), and row 5's
+             forward calls split (``timing_group_split``): row 5, the plane
+             mode on the same geometry and bound, row 8's ball query (the
+             search alone). Then the bounds pre-pass on the
+             ``train_raw=False`` float32 step's full SA1 geometry (its own
+             path: counters zeroed before, read after), and its ms beside
+             its plain version and its bound.
 9. check_serving — the multi-scale ball query (exactly, every scale) and
              the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
              plain versions on the card, on the inputs of an S=8 bfloat16
@@ -191,6 +198,42 @@ def sass_mma_counts(paths) -> dict:
                 per[fn] += 1
         counts[name] = per
     return counts
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: {"registers", "spill_bytes", "smem_bytes"}} from ptxas -v
+    output; a kernel is named as "name<mangled template arguments>"."""
+    import re
+
+    def short(mangled):  # _ZN<len><namespace><len><name>I<args>Ev<params>
+        m = re.match(r"_ZN(\d+)", mangled)
+        if not m:
+            return mangled
+        rest = mangled[m.end() + int(m.group(1)):]
+        n = re.match(r"(\d+)", rest)
+        if not n:
+            return mangled
+        name, tail = rest[n.end():n.end() + int(n.group(1))], rest[n.end() + int(n.group(1)):]
+        return f"{name}<{tail[:tail.index('Ev')]}>" if tail.startswith("I") and "Ev" in tail else name
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = short(m.group(1))
+            out[fn] = {"registers": None, "spill_bytes": 0, "smem_bytes": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 class Recorder:
@@ -422,6 +465,32 @@ def fps_split(calls, smi) -> list:
     return out
 
 
+def group_split(calls, smi) -> list:
+    """Row 5's forward calls of one step split by what they compute, each
+    timed on the recorded geometry and ``need`` in this call: row 5 (search,
+    rows built from raw), the plane-mode forward on a (B, N, C) plane (the
+    same search, rows copied), and row 8's ball query (the search alone,
+    without the ``need`` bound)."""
+    from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
+    from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale
+
+    out = []
+    scratch = {"fwd": 0, "bwd": 0}  # the plane-mode launches here count on no path
+    for name, a, _kw, _g in calls:
+        if name != "ball_query_group_raw":
+            continue
+        xyz, q, r, ns, W0, raw, need = a
+        A = torch.randn(xyz.shape[0], xyz.shape[1], W0.shape[1], device=xyz.device, dtype=W0.dtype)
+        entry = {"card": smi, "shape": str((tuple(xyz.shape), q.shape[1], ns, W0.shape[0], W0.shape[1])),
+                 "row5_fwd_ms": cuda_ms(lambda: bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw, need), 3),
+                 "plane_fwd_ms": cuda_ms(lambda: bqg.group_fwd(xyz, q, r, ns, A, need, scratch), 3),
+                 "ball_query_ms": cuda_ms(lambda: ball_query_multiscale(((r, ns),), xyz, q), 3)}
+        del A
+        out.append(entry)
+        emit({"phase": "timing_group_split", **entry})
+    return out
+
+
 def group_jobs(name, a, g, dtype=None):
     """The two kernel calls a recorded grouping call stands for, as
     {row: (kernel(), plain(), bound())}: the forward, and the backward on
@@ -589,6 +658,32 @@ def check_bounds(geoms, errs) -> list:
     return checks
 
 
+def check_job(row, shape, dt, kern, plain, errs, phase) -> dict:
+    """One grouping kernel call against its plain version on the same
+    inputs: forwards bit for bit (rows and indices), backwards within
+    BWD_TOL, row 5's backward also equal to itself bit for bit across two
+    calls (a fixed summation order). Fails the run on a mismatch."""
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    equal = row.endswith("fwd") and all(torch.equal(x, y) for x, y in zip(got, want))
+    d = 0.0 if equal else max_abs_diff(got, want)  # a full-size forward's diff in float64 takes GBs
+    ok = d == 0.0 if row.endswith("fwd") else bwd_close(row, got, want)
+    vals = (got[0] if isinstance(got, tuple) else got).float()
+    check = {"row": row, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": ok,
+             "max_abs_value": float(vals.abs().max())}
+    del want, vals
+    if row == "group_raw_bwd":
+        check["deterministic"] = bool(torch.equal(kern(), got))
+    emit({"phase": phase, **check})
+    errs[row] = max(errs.get(row, 0.0), d)
+    if not ok:
+        fail(f"{row} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+    if not check.get("deterministic", True):
+        fail(f"{row} kernel is not deterministic at {shape} {dt}: two calls differ")
+    return check
+
+
 def check_group_calls(calls, errs) -> list:
     """The grouping kernels of recorded train calls (with their cotangents)
     against their plain versions, in float32 and bfloat16. A function of
@@ -599,18 +694,7 @@ def check_group_calls(calls, errs) -> list:
             fail(f"{name}: no cotangent reached the recorded call")
         for dt in (torch.float32, torch.bfloat16):
             for row, (kern, plain, _b, shape) in group_jobs(name, a, g, dt).items():
-                got = kern()
-                torch.cuda.synchronize()
-                want = plain()
-                d = max_abs_diff(got, want)
-                ok = d == 0.0 if row.endswith("fwd") else bwd_close(row, got, want)
-                vals = (got[0] if isinstance(got, tuple) else got).float()
-                checks.append({"row": row, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": ok,
-                               "max_abs_value": float(vals.abs().max())})
-                emit({"phase": "check_train", **checks[-1]})
-                errs[row] = max(errs.get(row, 0.0), d)
-                if not ok:
-                    fail(f"{row} kernel disagrees with its plain version at {shape} {dt}: max |diff| {d}")
+                checks.append(check_job(row, shape, dt, kern, plain, errs, "check_train"))
     return checks
 
 
@@ -621,17 +705,21 @@ def add_timing(stats, row, k_ms, p_ms, b_ms, b_by) -> None:
 
 
 def time_group_calls(calls, smi, stats) -> list:
-    """Each recorded grouping call's kernels timed on its own inputs beside
-    their plain versions and bounds, added to ``stats``."""
+    """Each recorded grouping call's kernels on its own full inputs: first
+    held against their plain versions (``check_job``: the launch layouts
+    that the plans pick for the step's own sizes, which the cut calls of
+    check_train do not all reach), then timed beside the plain versions and
+    bounds, added to ``stats``."""
     per_call = []
     for name, a, _kw, g in calls:
         for row, (kern, plain, bnd, shape) in group_jobs(name, a, g).items():
+            check = check_job(row, shape, torch.float32, kern, plain, stats["errs"], "check_train_full")
             k_ms = cuda_ms(kern, 3)
             p_ms = cuda_ms(plain, 1)
             b_ms, b_by, info = as_bound(*bnd())
             add_timing(stats, row, k_ms, p_ms, b_ms, b_by)
             per_call.append({"row": row, "card": smi, "shape": str(shape), "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": b_ms, "bound_by": b_by, **info})
+                             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": check["max_abs_err"], **info})
             emit({"phase": "timing_train_kernel", **per_call[-1]})
     return per_call
 
@@ -819,7 +907,9 @@ def train_phases(args, rec, smi, results, stats) -> None:
                 continue
             # the kernels on the float32 step's inputs, freed before bfloat16
             per_call += time_group_calls(timed_calls, smi, stats)
-            if not train_raw:
+            if train_raw:
+                results["timing_group_split"] = group_split(timed_calls, smi)
+            else:
                 per_call += bounds_path(timed_calls, smi, stats)
             timed_calls = None
             gc.collect()
@@ -1153,9 +1243,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    ptxas = {n: [l.replace("ptxas info    : ", "").strip() for l in _build.build_log.get(n, "").splitlines()
-                 if "Used" in l or "spill" in l or "Compiling entry" in l]
-             for n in paths}
+    ptxas = {n: ptxas_summary(_build.build_log.get(n, "")) for n in paths}
     hmma = sass_mma_counts(paths)
     results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
                         "ptxas": ptxas, "sass_hmma": hmma}

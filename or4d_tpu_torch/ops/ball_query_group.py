@@ -25,13 +25,19 @@ then rounded to the cotangent's dtype. Geometry gets no gradient.
 The forward saves the hit indices (B, M, nsample) int32, filled, with -1 in
 every slot of a query with no hit; the backward is a scatter by them.
 
-The wrappers take the plain versions for CPU tensors only; a CUDA tensor
-always launches a kernel, and a failed launch raises.
+On the card the forward of both modes (and of raw mode,
+:mod:`ball_query_group_raw`) runs one kernel, planned by :func:`group_plan`:
+queries per block and the cloud's xyz staged in shared memory where it fits
+in 227 KB; the kernel recomputes the plan's bytes and refuses a plan that
+disagrees. The wrappers take the plain versions for CPU tensors only; a CUDA
+tensor always launches a kernel, and a shape the plan refuses or a failed
+launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -47,9 +53,95 @@ LAUNCHES_GATED = {"fwd": 0, "bwd": 0}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_NS = 127
 _MAX_C = 256
+_MAX_RAW_C0, _MAX_RAW_C = 8, 128
+MAX_SMEM = 232448  # 227 KB: the dynamic shared memory one block can have on an H100
 # the backward keeps one cloud's inverse in shared memory: at most the
 # H100's 227 KB per block, less the kernel's 64 static bytes
 _MAX_BWD_SMEM = 227 * 1024 - 64
+# the kernels' constants the plans assume (kFwdWarps, kFwdMinBlocks,
+# kRawBwdWarps and kRawBwdTile in the source: a test holds them equal)
+_FWD_WARPS = 16
+_FWD_BLOCKS_PER_SM = 2  # the forward's __launch_bounds__ minimum: 64 registers a thread
+_RAW_BWD_WARPS, _RAW_BWD_TILE = 8, 32
+H100_SMS = 132  # the planning default off the card; a launch plans with its device's count
+_SM_SMEM, _BLOCK_RESERVED = 233472, 1024  # shared memory per SM (228 KB), and reserved per block
+
+
+@dataclass(frozen=True)
+class GroupPlan:
+    """How the forward kernel of ``csrc/ball_query_group.cu`` runs one call
+    (both modes): blocks of 16 warps over ``block_queries`` queries of one
+    cloud; ``stage_xyz``: the cloud's xyz (up to the block's largest
+    search bound) is copied to shared memory, else the search reads global
+    memory; ``smem_bytes``: the block's dynamic shared memory, which the
+    kernel recomputes and checks."""
+
+    block_queries: int
+    stage_xyz: bool
+    smem_bytes: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _fwd_smem_bytes(N: int, ns: int, C0: int, C: int, stage_xyz: bool) -> int:
+    """The forward's shared memory (``fwd_smem`` in the source): per warp
+    its hit list (in raw mode, C0 > 0, then 16 slots' raw columns of 8
+    floats), a 16-byte control word, in raw mode W0 as f32 with rows of an
+    even width, then the staged xyz."""
+    warp = _align16(4 * ns) + (16 * 8 * 4 if C0 else 0)
+    return _FWD_WARPS * warp + 16 + _align16(4 * C0 * (C + C % 2)) + (_align16(12 * N) if stage_xyz else 0)
+
+
+def group_plan(B: int, N: int, M: int, ns: int, C: int, C0: int = 0, sms: int = H100_SMS) -> GroupPlan:
+    """The forward kernel's plan for one call: raw mode with ``C0`` > 0
+    (C <= 128, C0 <= 8), plane mode with ``C0`` 0 (C <= 256); ``ValueError``
+    outside the kernel's limits or over 227 KB of shared memory. The cloud's
+    xyz is staged where it fits. Queries per block: 64 (larger blocks end
+    in longer tails of slow searches and fill fewer waves; 32 stages the
+    cloud twice as often), halved to 32 where the call would have fewer
+    than two waves of resident blocks on the card's ``sms`` SMs."""
+    raw = C0 > 0
+    max_c = _MAX_RAW_C if raw else _MAX_C
+    if min(B, N, M) < 1 or not 1 <= ns <= MAX_NS or not 1 <= C <= max_c or C0 > _MAX_RAW_C0 or C0 < 0:
+        raise ValueError(f"ball_query_group kernel limits: nsample in [1, {MAX_NS}], C <= {max_c}, "
+                         f"C0 <= {_MAX_RAW_C0}; got B={B}, N={N}, M={M}, nsample={ns}, C={C}, C0={C0}")
+    stage_xyz = _fwd_smem_bytes(N, ns, C0, C, True) <= MAX_SMEM
+    smem = _fwd_smem_bytes(N, ns, C0, C, stage_xyz)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ball_query_group: {smem} bytes of shared memory, over {MAX_SMEM}")
+    per_sm = min(_FWD_BLOCKS_PER_SM, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    qb = 64
+    if B * -(-M // qb) < 2 * sms * per_sm:
+        qb //= 2
+    return GroupPlan(min(qb, M), stage_xyz, smem)
+
+
+def fwd_launch(xyz, new_xyz, radius: float, nsample: int, need, A, raw, W0, C0: int, C: int, dtype):
+    """Plans and launches the forward kernel (plane mode with ``A``, raw
+    mode with ``raw`` and ``W0``) on CUDA tensors -> (out, idx); raises on a
+    shape the plan refuses (before any launch) or a failed launch."""
+    from or4d_tpu_torch.ops._build import library
+
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    dev = xyz.device
+    plan = group_plan(B, N, M, nsample, C, C0, torch.cuda.get_device_properties(dev).multi_processor_count)
+    fn = library("ball_query_group").or4d_group_fwd
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn.argtypes = [I, P, P, I, I, I, F, I, P, P, P, P, I, I, P, P, I, I, L, P]
+    fn.restype = I
+    out = torch.empty(B, M, nsample, C, dtype=dtype, device=dev)
+    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = fn(DTYPES[dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample, ptr(need),
+                 ptr(A), ptr(raw), ptr(W0), C0, C, out.data_ptr(), idx.data_ptr(), plan.block_queries,
+                 int(plan.stage_xyz), plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ball_query_group forward kernel launch failed: CUDA error {err}")
+    return out, idx
 
 
 def bwd_smem_bytes(N: int, M: int, nsample: int) -> int:
@@ -146,24 +238,11 @@ def group_fwd(xyz, new_xyz, radius: float, nsample: int, A, need=None, launches=
         _check(need, "need", (B, M), torch.int32, xyz.device)
     if _device_type(xyz, "ball_query_group") == "cpu":
         return group_fwd_plain(xyz, new_xyz, radius, nsample, A, need)
-    if C > _MAX_C:
-        raise ValueError(f"ball_query_group kernel takes C <= {_MAX_C}, got {C}")
-    from or4d_tpu_torch.ops._build import library
-
-    fn = library("ball_query_group").or4d_group_fwd
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [I, P, P, I, I, I, F, I, P, P, P, P, I, I, P, P, P]
-    fn.restype = I
-    out = torch.empty(B, M, nsample, C, dtype=A.dtype, device=A.device)
-    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=A.device)
-    if B > 0 and M > 0:
-        with torch.cuda.device(A.device):
-            err = fn(DTYPES[A.dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample,
-                     None if need is None else need.data_ptr(), A.data_ptr(), None, None, 0, C, out.data_ptr(),
-                     idx.data_ptr(), torch.cuda.current_stream(A.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ball_query_group forward kernel launch failed: CUDA error {err}")
-        launches["fwd"] += 1
+    if B == 0 or M == 0:
+        return (torch.empty(B, M, nsample, C, dtype=A.dtype, device=A.device),
+                torch.empty(B, M, nsample, dtype=torch.int32, device=A.device))
+    out, idx = fwd_launch(xyz, new_xyz, radius, nsample, need, A, None, None, 0, C, A.dtype)
+    launches["fwd"] += 1
     return out, idx
 
 

@@ -18,30 +18,75 @@ query with no hit counts nothing), rounded to W0's dtype. raw, xyz and
 new_xyz get no gradient: exact only because raw holds model inputs, which
 the wrapper checks.
 
-The wrappers take the plain versions for CPU tensors only; a CUDA tensor
-always launches a kernel, and a failed launch raises.
+On the card the forward is :mod:`ball_query_group`'s kernel in raw mode
+(planned by ``group_plan``) and the backward two kernels planned by
+:func:`raw_bwd_plan`: partial sums over tiles of 32 queries, then a reduce
+in a fixed order, so every call gives the same bits. The wrappers take the
+plain versions for CPU tensors only; a CUDA tensor always launches a
+kernel, and a shape a plan refuses or a failed launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from or4d_tpu_torch.ops.ball_query_group import (
+    _MAX_RAW_C as _MAX_C,
+    _MAX_RAW_C0 as _MAX_C0,
+    _RAW_BWD_TILE as _BWD_TILE,
+    _RAW_BWD_WARPS as _BWD_WARPS,
     DTYPES,
+    MAX_NS,
+    MAX_SMEM,
+    _align16,
     _check,
     _check_geometry,
     _device_type,
+    fwd_launch,
     gather_rows,
     group_indices_plain,
-    r2_of,
 )
 
 # kernel launches: "fwd" (search + grouped rows from raw) and "bwd" (dW0)
 LAUNCHES = {"fwd": 0, "bwd": 0}
 
-_MAX_C0, _MAX_C = 8, 128
+_MAX_PARTIALS = 2048  # partial tiles of dW0 at most: a few MB of f32 scratch
+
+
+@dataclass(frozen=True)
+class RawBwdPlan:
+    """How the raw backward of ``csrc/ball_query_group.cu`` runs one call.
+
+    The queries of each cloud are cut into tiles of 32 (``tiles`` in all,
+    cloud-major); block ``k`` of ``blocks`` sums the slots of tiles
+    [k * tiles_per_block, (k + 1) * tiles_per_block) into partial k,
+    (C0, C) f32, with ``smem_bytes`` of shared memory; a second kernel sums
+    the partials in a fixed order. Fixed by the shapes alone, so every call
+    sums in the same order."""
+
+    tiles: int
+    tiles_per_block: int
+    blocks: int
+    smem_bytes: int
+
+
+def raw_bwd_plan(B: int, M: int, ns: int, C0: int, C: int) -> RawBwdPlan:
+    """The raw backward's plan (see ``RawBwdPlan``): as many blocks as
+    tiles, up to 2048 partials; ``ValueError`` outside the kernel's limits
+    or over 227 KB of shared memory."""
+    if min(B, M) < 1 or not 1 <= ns <= MAX_NS or not 1 <= C0 <= _MAX_C0 or not 1 <= C <= _MAX_C:
+        raise ValueError(f"ball_query_group_raw backward kernel limits: nsample in [1, {MAX_NS}], "
+                         f"C0 <= {_MAX_C0}, C <= {_MAX_C}; got B={B}, M={M}, nsample={ns}, C0={C0}, C={C}")
+    tiles = B * -(-M // _BWD_TILE)
+    per_block = -(-tiles // _MAX_PARTIALS)
+    # per warp a (C0, C) f32 tile, then per warp 32 slots' raw columns of 8 floats
+    smem = _align16(_BWD_WARPS * C0 * C * 4) + _BWD_WARPS * 32 * 8 * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"ball_query_group_raw backward: {smem} bytes of shared memory, over {MAX_SMEM}")
+    return RawBwdPlan(tiles, per_block, -(-tiles // per_block), smem)
 
 
 def group_raw_fwd_plain(xyz, new_xyz, radius: float, nsample: int, W0, raw, need=None):
@@ -84,24 +129,11 @@ def group_raw_fwd(xyz, new_xyz, radius: float, nsample: int, W0, raw, need=None)
         _check(need, "need", (B, M), torch.int32, xyz.device)
     if _device_type(xyz, "ball_query_group_raw") == "cpu":
         return group_raw_fwd_plain(xyz, new_xyz, radius, nsample, W0, raw, need)
-    if C0 > _MAX_C0 or C > _MAX_C:
-        raise ValueError(f"ball_query_group_raw kernel takes C0 <= {_MAX_C0}, C <= {_MAX_C}; got {C0}, {C}")
-    from or4d_tpu_torch.ops._build import library
-
-    fn = library("ball_query_group").or4d_group_fwd
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [I, P, P, I, I, I, F, I, P, P, P, P, I, I, P, P, P]
-    fn.restype = I
-    out = torch.empty(B, M, nsample, C, dtype=W0.dtype, device=W0.device)
-    idx = torch.empty(B, M, nsample, dtype=torch.int32, device=W0.device)
-    if B > 0 and M > 0:
-        with torch.cuda.device(W0.device):
-            err = fn(DTYPES[W0.dtype], xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2_of(radius), nsample,
-                     None if need is None else need.data_ptr(), None, raw.data_ptr(), W0.data_ptr(), C0, C,
-                     out.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(W0.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ball_query_group_raw forward kernel launch failed: CUDA error {err}")
-        LAUNCHES["fwd"] += 1
+    if B == 0 or M == 0:
+        return (torch.empty(B, M, nsample, C, dtype=W0.dtype, device=W0.device),
+                torch.empty(B, M, nsample, dtype=torch.int32, device=W0.device))
+    out, idx = fwd_launch(xyz, new_xyz, radius, nsample, need, None, raw, W0, C0, C, W0.dtype)
+    LAUNCHES["fwd"] += 1
     return out, idx
 
 
@@ -117,21 +149,21 @@ def group_raw_bwd(idx, g, raw) -> torch.Tensor:
     _check(idx, "idx", (B, M, ns), torch.int32, raw.device)
     if _device_type(raw, "ball_query_group_raw backward") == "cpu":
         return group_raw_bwd_plain(idx, g, raw)
-    if C0 > _MAX_C0 or C > _MAX_C or ns > 127:
-        raise ValueError(f"ball_query_group_raw backward kernel takes C0 <= {_MAX_C0}, C <= {_MAX_C}, ns <= 127")
-    from or4d_tpu_torch.ops._build import library
-
-    fn = library("ball_query_group").or4d_group_raw_bwd
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, P, I, I, I, I, I, I, P, P, P]
-    fn.restype = I
     dW0 = torch.empty(C0, C, dtype=raw.dtype, device=raw.device)
     if B == 0 or M == 0:
         return dW0.zero_()
-    partial = torch.empty(B, C0, C, dtype=torch.float32, device=raw.device)
+    plan = raw_bwd_plan(B, M, ns, C0, C)  # raises before any launch
+    from or4d_tpu_torch.ops._build import library
+
+    fn = library("ball_query_group").or4d_group_raw_bwd
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [I, P, P, P, I, I, I, I, I, I, I, I, L, P, P, P]
+    fn.restype = I
+    partial = torch.empty(plan.blocks, C0, C, dtype=torch.float32, device=raw.device)
     with torch.cuda.device(raw.device):
         err = fn(DTYPES[raw.dtype], idx.data_ptr(), g.data_ptr(), raw.data_ptr(), B, N, M, ns, C0, C,
-                 partial.data_ptr(), dW0.data_ptr(), torch.cuda.current_stream(raw.device).cuda_stream)
+                 plan.tiles_per_block, plan.blocks, plan.smem_bytes, partial.data_ptr(), dW0.data_ptr(),
+                 torch.cuda.current_stream(raw.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ball_query_group_raw backward kernel launch failed: CUDA error {err}")
     LAUNCHES["bwd"] += 1

@@ -67,6 +67,9 @@
 //  tile's device code (raw-mode layer 1, the hmid repack, layer 2 and the
 //  epilogue) are sa_mma_tile.cuh, which the serving SA1 kernel runs too.
 //
+// The search and the staging of the cloud's xyz are ball_search.cuh, which
+// the train grouping kernels (ball_query_group.cu) share.
+//
 // float32, `sa_fp32_kernel` (card-vs-CPU checks), the first design: one warp
 // per query, 8 warps over 32 queries of one cloud, W1/W0/a1/b1 in shared
 // memory, the first `ns` hits to a per-warp list by ballot/popc, each lane
@@ -76,6 +79,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "ball_search.cuh"
 #include "sa_mma_tile.cuh"
 
 namespace {
@@ -117,34 +121,9 @@ struct SAArgs {
   int stage_xyz, stage_plane;
 };
 
-__device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
+using ball_search::search;
 using sa_tile::align16;
 using sa_tile::round_up;
-
-// The first `ns` hits of query (qx, qy, qz) among pts[0, limit) in scan
-// order into s_idx, 64 points per step (two independent distances a lane,
-// ranked in scan order by two ballots); returns the hit count (may exceed
-// ns).
-__device__ __forceinline__ int search(const float* pts, int limit, float qx, float qy, float qz, float r2, int ns,
-                                      int* s_idx, int lane) {
-  int cnt = 0;
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < limit && cnt < ns; base += 64) {
-    const int i0 = base + lane, i1 = i0 + 32;
-    bool hit0 = false, hit1 = false;
-    if (i0 < limit) hit0 = sqdist(qx - pts[3 * i0], qy - pts[3 * i0 + 1], qz - pts[3 * i0 + 2]) < r2;
-    if (i1 < limit) hit1 = sqdist(qx - pts[3 * i1], qy - pts[3 * i1 + 1], qz - pts[3 * i1 + 2]) < r2;
-    const unsigned m0 = __ballot_sync(0xffffffffu, hit0), m1 = __ballot_sync(0xffffffffu, hit1);
-    const int r0 = cnt + __popc(m0 & below), r1 = cnt + __popc(m0) + __popc(m1 & below);
-    if (hit0 && r0 < ns) s_idx[r0] = i0;
-    if (hit1 && r1 < ns) s_idx[r1] = i1;
-    cnt += __popc(m0) + __popc(m1);
-  }
-  return cnt;
-}
 
 // ---------------------------------------------------------------- float32
 
@@ -311,11 +290,6 @@ __host__ __device__ inline MmaLayout mma_layout(int N, int ns, int craw, int C1,
   return L;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -374,7 +348,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) sa_mma_kernel(SAArgs a) {
   const float* pts = a.xyz + (size_t)b * N * 3;
   if (a.stage_xyz) {
     float* s_xyz = reinterpret_cast<float*>(smem + L.xyz);
-    for (int i = tid; i < 3 * lim; i += nthr) cp_async4(s_xyz + i, pts + i);
+    ball_search::stage_points(s_xyz, pts, lim, tid, nthr);
     pts = s_xyz;
   }
   const __nv_bfloat16* Ab = nullptr;

@@ -16,9 +16,11 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_sources_that_share_the_tile_header_name_it():
-    for name in ("sa_group_mlp", "serving_sa1_mlp"):
-        assert _build._includes((_build.CSRC / f"{name}.cu").read_bytes()) == ["sa_mma_tile.cuh"]
-    assert _build._includes((_build.CSRC / "fps.cu").read_bytes()) == []
+    includes = lambda name: _build._includes((_build.CSRC / f"{name}.cu").read_bytes())
+    assert includes("sa_group_mlp") == ["ball_search.cuh", "sa_mma_tile.cuh"]
+    assert includes("serving_sa1_mlp") == ["sa_mma_tile.cuh"]
+    assert includes("ball_query_group") == ["ball_search.cuh"]
+    assert includes("fps") == []
 
 
 def test_a_changed_header_changes_the_library_name(tmp_path, monkeypatch):
@@ -31,6 +33,15 @@ def test_a_changed_header_changes_the_library_name(tmp_path, monkeypatch):
     assert changed == {"sa_group_mlp", "serving_sa1_mlp"}
     (csrc / "unused.cuh").write_bytes(b"// not included anywhere\n")
     assert {n: _build._lib_path(n) for n in _build.SOURCES} == after
+
+
+def test_a_changed_search_header_rebuilds_both_sources_that_search(tmp_path, monkeypatch):
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    header = csrc / "ball_search.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    changed = {n for n in _build.SOURCES if before[n] != _build._lib_path(n)}
+    assert changed == {"sa_group_mlp", "ball_query_group"}
 
 
 def test_a_changed_source_or_flag_changes_the_library_name(tmp_path, monkeypatch):

@@ -283,6 +283,174 @@ def test_group_wrappers_raise_on_bad_inputs(card):
                       torch.randn(1, 1024, 64, 16, device=card), 8000)
 
 
+# row 5 at the S=8 train step's widths: relation crops (N 8000, C0 7) and
+# the object call's shape (96 clouds of 4000 points, C0 6); M 512, C 64
+ROW5_FULL = {"relations": (16, 8000, 7, 9), "objects": (96, 4000, 6, 10)}
+
+
+def _row5_full(case, dtype, card):
+    B, N, C0, seed = ROW5_FULL[case]
+    xyz = _cloud(seed, B, N).to(card)
+    idx, need = furthest_point_sample_with_bounds(xyz, 512, ((0.1, 16), (0.2, 32)))
+    q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+    q[0, 5] = 40.0  # no hit
+    gen = torch.Generator().manual_seed(seed)
+    raw = torch.randn(B, C0, N, generator=gen).to(dtype).to(card)
+    W0 = (torch.randn(C0, 64, generator=gen) / C0 ** 0.5).to(dtype).to(card)
+    return xyz, q, need, raw, W0, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ROW5_FULL))
+def test_row5_forward_at_step_widths_bit_equal(card, case, dtype):
+    """Rows bit-equal to the plain version (the f32 fmaf chain over C0 in
+    order), indices exact, the FPS bound changing nothing, -1 and zero rows
+    for a query with no hit."""
+    xyz, q, need, raw, W0, _gen = _row5_full(case, dtype, card)
+    for (r, ns), nd in zip(((0.1, 16), (0.2, 32)), need):
+        want, widx = bqgr.group_raw_fwd_plain(xyz, q, r, ns, W0, raw)
+        reset_launch_counts()
+        got, gidx = bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw, nd)
+        assert launch_counts()["group_raw.fwd"] == 1
+        torch.testing.assert_close(gidx, widx, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert (gidx[0, 5] == -1).all() and not got[0, 5].any()
+        unbounded, uidx = bqgr.group_raw_fwd(xyz, q, r, ns, W0, raw)  # need changes nothing
+        torch.testing.assert_close(uidx, gidx, rtol=0, atol=0)
+        torch.testing.assert_close(unbounded, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ROW5_FULL))
+def test_row5_backward_at_step_widths_deterministic(card, case, dtype):
+    xyz, q, need, raw, W0, gen = _row5_full(case, dtype, card)
+    _out, idx = bqgr.group_raw_fwd(xyz, q, 0.2, 32, W0, raw, need[1])
+    g = torch.randn(_out.shape, generator=gen).to(dtype).to(card)
+    reset_launch_counts()
+    dW0 = bqgr.group_raw_bwd(idx, g, raw)
+    assert launch_counts()["group_raw.bwd"] == 1
+    torch.testing.assert_close(bqgr.group_raw_bwd(idx, g, raw), dW0, rtol=0, atol=0)  # bit-identical
+    _close_bwd(dW0, bqgr.group_raw_bwd_plain(idx, g, raw), "dW0")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["160_clouds", "5_partials"])
+def test_row5_backward_with_several_tiles_a_block(card, monkeypatch, case, dtype):
+    """Blocks that sum several tiles of 32 queries, running from one cloud
+    into the next, as the step's 640-cloud relation call does (5 tiles a
+    block): 160 clouds of 512 queries give 2 tiles a block; 7 clouds of 100
+    queries cut into 5 partials give 6, a cloud's short last tile inside a
+    block. Bit-identical across two calls and within BWD_TOL of plain."""
+    if case == "5_partials":
+        monkeypatch.setattr(bqgr, "_MAX_PARTIALS", 5)
+    B, M, per_block = (160, 512, 2) if case == "160_clouds" else (7, 100, 6)
+    assert bqgr.raw_bwd_plan(B, M, 32, 7, 64).tiles_per_block == per_block
+    xyz, q, _A = _group_inputs(21, B, 2000, M, 1, dtype)
+    xyz, q = xyz.to(card), q.to(card)
+    gen = torch.Generator(card).manual_seed(21)
+    raw = torch.randn(B, 7, 2000, generator=gen, device=card).to(dtype)
+    W0 = (torch.randn(7, 64, generator=gen, device=card) / 7 ** 0.5).to(dtype)
+    _out, idx = bqgr.group_raw_fwd(xyz, q, 0.2, 32, W0, raw)
+    assert (idx[0, 1] == -1).all()
+    g = torch.randn(_out.shape, generator=gen, device=card).to(dtype)
+    reset_launch_counts()
+    dW0 = bqgr.group_raw_bwd(idx, g, raw)
+    assert launch_counts()["group_raw.bwd"] == 1
+    torch.testing.assert_close(bqgr.group_raw_bwd(idx, g, raw), dW0, rtol=0, atol=0)  # bit-identical
+    _close_bwd(dW0, bqgr.group_raw_bwd_plain(idx, g, raw), "dW0")
+
+
+def _search_pair_library(tmp_path):
+    """tests/csrc/ball_search_pair.cu built with the kernels' nvcc flags."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from or4d_tpu_torch.ops import _build
+
+    src = Path(__file__).resolve().parent / "csrc" / "ball_search_pair.cu"
+    out = tmp_path / "libball_search_pair.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).or4d_search_pair
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [P, P, I, I, I, P, F, I, I, P, P, P, P, P]
+    fn.restype = I
+    return fn
+
+
+@pytest.mark.parametrize("N", [8000, 1101])
+def test_both_scan_order_searches_select_the_same_hits(card, tmp_path, N):
+    """ball_search.cuh holds two searches with one selection: ``search``
+    (rows 3 and 4) and ``search_x4`` (rows 5, 6 and 9). On the same clouds
+    and queries they give the same hit lists and, where a query has fewer
+    hits than nsample, the same count: with and without a scan limit, with
+    the 16-byte loads (N 8000; N 1101 leaves odd clouds unaligned and a
+    ragged tail) and without them."""
+    from or4d_tpu_torch.ops.ball_query_group import r2_of
+
+    fn = _search_pair_library(tmp_path)
+    B, M = 6, 256
+    xyz, q, _A = _group_inputs(N, B, N, M, 1, torch.float32)
+    xyz, q = xyz.to(card), q.to(card)
+    gen = torch.Generator(card).manual_seed(N)
+    limits = (None, torch.randint(1, N + 1, (B * M,), generator=gen, device=card, dtype=torch.int32))
+    stream = torch.cuda.current_stream(card).cuda_stream
+    seen = set()  # queries with no hit, with a few, with nsample or more
+    for radius, ns in ((0.1, 16), (0.2, 32), (0.4, 64)):
+        for limit in limits:
+            for vec in (1, 0):
+                ia, ib = (torch.full((B * M, ns), -1, dtype=torch.int32, device=card) for _ in range(2))
+                ca, cb = (torch.empty(B * M, dtype=torch.int32, device=card) for _ in range(2))
+                assert fn(xyz.data_ptr(), q.data_ptr(), B, N, M, None if limit is None else limit.data_ptr(),
+                          r2_of(radius), ns, vec, ia.data_ptr(), ca.data_ptr(), ib.data_ptr(), cb.data_ptr(),
+                          stream) == 0
+                torch.cuda.synchronize()
+                torch.testing.assert_close(ca.clamp(max=ns), cb.clamp(max=ns), rtol=0, atol=0)
+                torch.testing.assert_close(ib, ia, rtol=0, atol=0)
+                seen |= {k for k, m in (("none", ca == 0), ("few", (ca > 0) & (ca < ns)), ("full", ca >= ns))
+                         if m.any()}
+    assert seen == {"none", "few", "full"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plane_forward_at_step_widths_bit_equal(card, dtype):
+    """Rows 9 (SA1 plane within the FPS bound) and 6 (SA2's 512-point
+    clouds, C 128) through the shared search."""
+    xyz, q, need, _raw, _W0, gen = _row5_full("relations", dtype, card)
+    A = torch.randn(xyz.shape[0], xyz.shape[1], 64, generator=gen).to(dtype).to(card)
+    got, gidx = bqg.group_fwd(xyz, q, 0.2, 32, A, need[1], bqg.LAUNCHES_GATED)
+    want, widx = bqg.group_fwd_plain(xyz, q, 0.2, 32, A)
+    torch.testing.assert_close(gidx, widx, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    xyz2, q2, A2 = (t.to(card) for t in _group_inputs(12, 40, 512, 128, 128, dtype))
+    for r, ns in ((0.2, 32), (0.4, 64)):
+        got, gidx = bqg.group_fwd(xyz2, q2, r, ns, A2)
+        want, widx = bqg.group_fwd_plain(xyz2, q2, r, ns, A2)
+        torch.testing.assert_close(gidx, widx, rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert (gidx[0, 1] == -1).all() and not got[0, 1].any()
+
+
+def test_group_wrappers_raise_when_a_plan_is_refused(card, monkeypatch):
+    """A plan over the shared-memory budget raises before any launch; no
+    wrapper falls back to its plain version."""
+    xyz, q, need, raw, W0, gen = _row5_full("objects", torch.float32, card)
+    _out, idx = bqgr.group_raw_fwd(xyz, q, 0.1, 16, W0, raw, need[0])
+    g = torch.randn(_out.shape, generator=gen, device="cpu").to(card)
+    A = torch.randn(xyz.shape[0], xyz.shape[1], 64, device=card)
+    reset_launch_counts()
+    monkeypatch.setattr(bqg, "MAX_SMEM", 1000)
+    with pytest.raises(ValueError):
+        bqgr.group_raw_fwd(xyz, q, 0.1, 16, W0, raw, need[0])
+    with pytest.raises(ValueError):
+        bqg.group_fwd(xyz, q, 0.1, 16, A)
+    monkeypatch.setattr(bqgr, "MAX_SMEM", 1000)
+    with pytest.raises(ValueError):
+        bqgr.group_raw_bwd(idx, g, raw)
+    assert all(v == 0 for v in launch_counts().values())
+
+
 # SA1's train grouping with train_raw false (TPU row 9) at the relation
 # crops' widths, and the bounds pre-pass (row 10) on SA1 geometry
 SA1_SCALES = ((0.1, 16), (0.2, 32))
