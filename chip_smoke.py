@@ -40,8 +40,8 @@ slice and train phases.
              ``no_gt`` train step on each SA1 path (cut to 64 clouds), in
              float32 and bfloat16: forwards exactly, dA within 1e-5 and dW0
              within 1e-4 of their largest value (another summation order),
-             plus one bf16 ulp in bfloat16; row 5's backward called twice
-             must agree bit for bit. The bounds pre-pass on the
+             plus one bf16 ulp in bfloat16; each backward called twice must
+             agree bit for bit. The bounds pre-pass on the
              ``train_raw=False`` step's SA1 geometry: exactly its plain
              version, and the need and hit totals of the FPS kernel's counts.
 7. train   — ``Trainer.train_step`` three times on S=8 synthetic scenes, on
@@ -65,7 +65,11 @@ slice and train phases.
              plans pick for the step's own sizes), and row 5's
              forward calls split (``timing_group_split``): row 5, the plane
              mode on the same geometry and bound, row 8's ball query (the
-             search alone). Then the bounds pre-pass on the
+             search alone). The plane backward's calls (rows 6 and 9) split
+             (``timing_bwd_split``): the kernel, the kernel on 8 of the
+             cotangent's channels, and ``index_add_`` of the cotangent rows
+             at the flattened hit indices (the ``library_ms`` of rows 6 and
+             9 bwd). Then the bounds pre-pass on the
              ``train_raw=False`` float32 step's full SA1 geometry (its own
              path: counters zeroed before, read after), and its ms beside
              its plain version and its bound.
@@ -88,9 +92,14 @@ slice and train phases.
 11. timing_serving — the S=64 bfloat16 serving batch: cache build host
              seconds and bytes (set-up), forward batch ms with the caches
              resident, scenes/s, peak memory and a torch.profiler breakdown;
-             the ball query's ms on the cache build's inputs and the serving
-             MLP's ms on the forward's, beside their plain versions and
-             bounds (and bound_share).
+             the ball query's ms on the cache build's inputs, each call first
+             held exactly against its plain version on those full inputs
+             (``check_serving_full``: the layout the plan picks at full
+             size), and the serving MLP's ms on the forward's, beside their
+             plain versions and bounds (and bound_share); the ball query's
+             calls split by scale (``timing_multiscale_split``: every scale
+             in one launch and each alone, and the points the searches read
+             with and without a chunk bound).
 
 Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``. Weights are random, from a seed.
@@ -491,11 +500,57 @@ def group_split(calls, smi) -> list:
     return out
 
 
+def bwd_split(calls, smi, stats) -> list:
+    """The plane backward's calls of one step (rows 6 and 9) split, each
+    timed on the recorded cotangent and the kernel forward's hit indices in
+    this call: the kernel as it stands, the kernel on the first 8 channels
+    of ``g`` (the same inverse with an eighth of the rows' bytes), and the
+    one PyTorch call that computes the same sums, ``index_add_`` of the
+    cotangent rows at the flattened hit indices (every -1 slot sent to an
+    extra row; the indices are prepared outside the timed region). The
+    ``index_add_`` times add up, per row, to its ``library_ms``."""
+    from or4d_tpu_torch.ops import ball_query_group as bqg
+
+    out = []
+    scratch = {"fwd": 0, "bwd": 0}  # these launches count on no path
+    for name, a, _kw, g in calls:
+        if name not in ("ball_query_group", "ball_query_group_gated"):
+            continue
+        row = "group_gated_bwd" if name == "ball_query_group_gated" else "group_bwd"
+        xyz, q, r, ns, A = a[:5]
+        need = a[5] if name == "ball_query_group_gated" else None
+        B, N, _ = xyz.shape
+        C = A.shape[-1]
+        g = g.contiguous()
+        _out, idx = bqg.group_fwd(xyz, q, r, ns, A, need, scratch)
+        del _out
+        g8 = g[..., :8].contiguous()
+        flat = (torch.arange(B, device=idx.device)[:, None, None] * N + idx.long()).view(-1)
+        flat = torch.where(idx.view(-1) >= 0, flat, torch.full_like(flat, B * N))
+        dA_ext = torch.zeros(B * N + 1, C, dtype=g.dtype, device=g.device)
+        rows = g.view(-1, C)
+        entry = {"row": row, "card": smi, "shape": str((tuple(xyz.shape), q.shape[1], ns, C)),
+                 "dtype": str(g.dtype),
+                 "bwd_ms": cuda_ms(lambda: bqg.group_bwd(idx, g, N, scratch), 3),
+                 "bwd_c8_ms": cuda_ms(lambda: bqg.group_bwd(idx, g8, N, scratch), 3),
+                 "index_add_ms": cuda_ms(lambda: dA_ext.index_add_(0, flat, rows), 3)}
+        del g8, flat, dA_ext, rows, idx
+        stats["library_ms"][row] = stats["library_ms"].get(row, 0.0) + entry["index_add_ms"]
+        out.append(entry)
+        emit({"phase": "timing_bwd_split", **entry})
+    return out
+
+
 def group_jobs(name, a, g, dtype=None):
     """The two kernel calls a recorded grouping call stands for, as
-    {row: (kernel(), plain(), bound())}: the forward, and the backward on
-    the kernel forward's hit indices and the recorded cotangent ``g``. With
-    ``dtype`` the value operands (A, raw, W0, g) are cast to it."""
+    {row: (kernel(), plain(), bound(), shape, reference())}: the forward,
+    and the backward on the kernel forward's hit indices and the recorded
+    cotangent ``g``. ``reference`` is what the check holds the kernel
+    against: the plain version, but for row 5's dW0 the plain version on
+    float64 operands (the float32 product over the step's 10 M slots lands
+    up to ~1e-4 of the largest value away from the exact sum, near the
+    gate). With ``dtype`` the value operands (A, raw, W0, g) are cast to
+    it."""
     from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as bqgr
 
     cast = (lambda t: t.contiguous()) if dtype is None else (lambda t: t.to(dtype).contiguous())
@@ -529,10 +584,11 @@ def group_jobs(name, a, g, dtype=None):
     if prefix == "group_raw":
         bwd = lambda: bqgr.group_raw_bwd(idx, g, raw)
         bwd_plain = lambda: bqgr.group_raw_bwd_plain(idx, g, raw)
+        bwd_ref = lambda: bqgr.group_raw_bwd_plain(idx, g.double(), raw.double()).to(g.dtype)
         bwd_out_bytes = C0 * C * es
     else:
         bwd = lambda: bqg.group_bwd(idx, g, N, counter)
-        bwd_plain = lambda: bqg.group_bwd_plain(idx, g, N)
+        bwd_plain = bwd_ref = lambda: bqg.group_bwd_plain(idx, g, N)
         bwd_out_bytes = B * N * C * es
 
     def fwd_bound():
@@ -553,7 +609,8 @@ def group_jobs(name, a, g, dtype=None):
         return nbytes, valid * (2 * C0 * C if prefix == "group_raw" else C), {"valid_slots": valid, "rows_read": rows}
 
     shape = (tuple(xyz.shape), M, ns, C0, C)
-    return {f"{prefix}_fwd": (fwd, fwd_plain, fwd_bound, shape), f"{prefix}_bwd": (bwd, bwd_plain, bwd_bound, shape)}
+    return {f"{prefix}_fwd": (fwd, fwd_plain, fwd_bound, shape, fwd_plain),
+            f"{prefix}_bwd": (bwd, bwd_plain, bwd_bound, shape, bwd_ref)}
 
 
 def as_bound(nbytes, f32_ops, info) -> tuple[float, str, dict]:
@@ -658,14 +715,14 @@ def check_bounds(geoms, errs) -> list:
     return checks
 
 
-def check_job(row, shape, dt, kern, plain, errs, phase) -> dict:
-    """One grouping kernel call against its plain version on the same
-    inputs: forwards bit for bit (rows and indices), backwards within
-    BWD_TOL, row 5's backward also equal to itself bit for bit across two
-    calls (a fixed summation order). Fails the run on a mismatch."""
+def check_job(row, shape, dt, kern, ref, errs, phase) -> dict:
+    """One grouping kernel call against its reference (``group_jobs``) on
+    the same inputs: forwards bit for bit (rows and indices), backwards within
+    BWD_TOL and equal to themselves bit for bit across two calls (a fixed
+    summation order). Fails the run on a mismatch."""
     got = kern()
     torch.cuda.synchronize()
-    want = plain()
+    want = ref()
     equal = row.endswith("fwd") and all(torch.equal(x, y) for x, y in zip(got, want))
     d = 0.0 if equal else max_abs_diff(got, want)  # a full-size forward's diff in float64 takes GBs
     ok = d == 0.0 if row.endswith("fwd") else bwd_close(row, got, want)
@@ -673,7 +730,7 @@ def check_job(row, shape, dt, kern, plain, errs, phase) -> dict:
     check = {"row": row, "shape": str(shape), "dtype": str(dt), "max_abs_err": d, "ok": ok,
              "max_abs_value": float(vals.abs().max())}
     del want, vals
-    if row == "group_raw_bwd":
+    if row.endswith("bwd"):
         check["deterministic"] = bool(torch.equal(kern(), got))
     emit({"phase": phase, **check})
     errs[row] = max(errs.get(row, 0.0), d)
@@ -693,8 +750,8 @@ def check_group_calls(calls, errs) -> list:
         if g is None:
             fail(f"{name}: no cotangent reached the recorded call")
         for dt in (torch.float32, torch.bfloat16):
-            for row, (kern, plain, _b, shape) in group_jobs(name, a, g, dt).items():
-                checks.append(check_job(row, shape, dt, kern, plain, errs, "check_train"))
+            for row, (kern, _p, _b, shape, ref) in group_jobs(name, a, g, dt).items():
+                checks.append(check_job(row, shape, dt, kern, ref, errs, "check_train"))
     return checks
 
 
@@ -712,8 +769,8 @@ def time_group_calls(calls, smi, stats) -> list:
     bounds, added to ``stats``."""
     per_call = []
     for name, a, _kw, g in calls:
-        for row, (kern, plain, bnd, shape) in group_jobs(name, a, g).items():
-            check = check_job(row, shape, torch.float32, kern, plain, stats["errs"], "check_train_full")
+        for row, (kern, plain, bnd, shape, ref) in group_jobs(name, a, g).items():
+            check = check_job(row, shape, torch.float32, kern, ref, stats["errs"], "check_train_full")
             k_ms = cuda_ms(kern, 3)
             p_ms = cuda_ms(plain, 1)
             b_ms, b_by, info = as_bound(*bnd())
@@ -907,6 +964,7 @@ def train_phases(args, rec, smi, results, stats) -> None:
                 continue
             # the kernels on the float32 step's inputs, freed before bfloat16
             per_call += time_group_calls(timed_calls, smi, stats)
+            results.setdefault("timing_bwd_split", []).extend(bwd_split(timed_calls, smi, stats))
             if train_raw:
                 results["timing_group_split"] = group_split(timed_calls, smi)
             else:
@@ -917,11 +975,14 @@ def train_phases(args, rec, smi, results, stats) -> None:
     results["timing_train"] = {"steps": timing, "per_call": per_call}
 
 
-def scan_ends(xyz, new_xyz, radius, ns):
+def scan_ends(xyz, new_xyz, radius, ns, chunk_bound=False):
     """(B, M) points each query's scan-order search for ``ns`` hits reads
     on these inputs: through its ns-th hit, or all N points when it has
-    fewer."""
+    fewer. With ``chunk_bound`` a query with fewer hits stops at the end of
+    the 512-point chunk of its last hit (the FPS counts' ``need`` bound;
+    the first chunk when it has none)."""
     from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
+    from or4d_tpu_torch.ops.fps import CHUNK
 
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
@@ -930,8 +991,39 @@ def scan_ends(xyz, new_xyz, radius, ns):
     for s in range(0, B, step):
         idx, total = ball_query_with_counts(radius, ns, xyz[s:s + step], new_xyz[s:s + step])
         last = idx[..., ns - 1] + 1 if ns <= N else torch.full_like(total, N)
-        ends.append(torch.where(total >= ns, last, torch.full_like(last, N)))
+        short = torch.full_like(last, N)
+        if chunk_bound:
+            thr = total.clamp(max=ns)
+            last_hit = torch.gather(idx, 2, (thr - 1).clamp(min=0)[..., None])[..., 0] + 1
+            need = torch.where(thr > 0, (last_hit + CHUNK - 1) // CHUNK, torch.ones_like(last_hit))
+            short = (need * CHUNK).clamp(max=N)
+        ends.append(torch.where(total >= ns, last, short))
     return torch.cat(ends)
+
+
+def multiscale_split(calls, smi) -> list:
+    """Row 8's calls of one cache build split by scale, each timed on the
+    recorded inputs in this call: every scale in one launch and each scale
+    alone, beside the points the searches read (``scan_ends``: a query
+    reads until every scale has its ns hits, the whole cloud where one has
+    fewer) and the points they would read with the FPS counts' chunk bound
+    (which the cache build's FPS does not compute)."""
+    from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale
+
+    out = []
+    for _name, (scales, xyz, q), _kw, _g in calls:
+        ends = [scan_ends(xyz, q, r, ns) for r, ns in scales]
+        bounded = [scan_ends(xyz, q, r, ns, chunk_bound=True) for r, ns in scales]
+        entry = {"card": smi, "shape": str((tuple(xyz.shape), q.shape[1])), "scales": scales,
+                 "all_scales_ms": cuda_ms(lambda: ball_query_multiscale(scales, xyz, q), 3),
+                 "scale_ms": [cuda_ms(lambda: ball_query_multiscale((sc,), xyz, q), 3) for sc in scales],
+                 "points_read": int(torch.stack(ends).amax(0).sum()),
+                 "points_read_per_scale": [int(e.sum()) for e in ends],
+                 "points_read_with_chunk_bound": int(torch.stack(bounded).amax(0).sum()),
+                 "queries": int(q.shape[0] * q.shape[1])}
+        out.append(entry)
+        emit({"phase": "timing_multiscale_split", **entry})
+    return out
 
 
 def serving_bound(name, args) -> tuple[float, str, dict]:
@@ -1163,8 +1255,24 @@ def serving_phases(args, rec, smi, results, stats) -> None:
     torch.cuda.empty_cache()
     per_call = []
 
+    def check_full(name, cargs):
+        """Row 8 exactly against its plain version on the S-scene build's
+        own inputs: the launch layout its plan picks at full size."""
+        got = run_serving_call(name, cargs, plain=False)
+        torch.cuda.synchronize()
+        want = run_serving_call(name, cargs, plain=True)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        check = {"row": name, "shape": str((tuple(cargs[1].shape), cargs[2].shape[1], cargs[0])), "ok": equal}
+        del got, want
+        emit({"phase": "check_serving_full", **check})
+        if not equal:
+            fail(f"{name} kernel disagrees with its plain version on the S={S} cache build's inputs: {check}")
+        results.setdefault("check_serving_full", []).append(check)
+
     def time_calls(calls, reps):
         for name, cargs, _kw, _g in calls:
+            if name == "ball_query_multiscale":
+                check_full(name, cargs)
             k_ms = cuda_ms(lambda: run_serving_call(name, cargs, plain=False), reps)
             p_ms = cuda_ms(lambda: run_serving_call(name, cargs, plain=True), 1)
             b_ms, b_by, info = serving_bound(name, cargs)
@@ -1177,6 +1285,7 @@ def serving_phases(args, rec, smi, results, stats) -> None:
             emit({"phase": "timing_serving_kernel", **per_call[-1]})
 
     time_calls(build_calls, 3)
+    results["timing_multiscale_split"] = multiscale_split(build_calls, smi)
     del build_calls
     bst = strip(bS)
     model(bst, pS, sa1_caches=caches)  # warm-up
@@ -1383,7 +1492,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_t": bound_t}
+             "bound_ms": bound_ms, "bound_t": bound_t, "library_ms": {}}
     train_phases(args, rec, smi, results, stats)
     serving_phases(args, rec, smi, results, stats)
     rows = ROWS + TRAIN_ROWS + SERVING_ROWS + GATED_ROWS + BOUNDS_ROWS
@@ -1400,7 +1509,7 @@ def main(argv=None) -> int:
             "launches": stats["launches"][counter], "max_abs_err": errs[row],
             "ms": kern_ms[row], "plain_ms": plain_ms[row], "bound_ms": bound_ms[row],
             "bound_by": "bytes" if bound_t[row][0] >= bound_t[row][1] else "operations",
-            "library_ms": None,
+            "library_ms": stats["library_ms"].get(row),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

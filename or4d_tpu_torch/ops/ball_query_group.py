@@ -18,9 +18,10 @@ in the header of ``csrc/ball_query_group.cu``.
 Forward: for each query, the first ``nsample`` support points within
 ``radius`` in scan order (first-hit fill), their rows of A (B, N, C) copied
 as they are into (B, M, nsample, C); a query with no hit gets zero rows.
-Backward: the cotangent of every slot is added, in f32, to the A row it came
-from (filled slots to the first hit; nothing from a query with no hit),
-then rounded to the cotangent's dtype. Geometry gets no gradient.
+Backward: the cotangent of every slot is added, in f32 and in flattened
+slot order, to the A row it came from (filled slots to the first hit;
+nothing from a query with no hit), then rounded to the cotangent's dtype.
+Geometry gets no gradient.
 
 The forward saves the hit indices (B, M, nsample) int32, filled, with -1 in
 every slot of a query with no hit; the backward is a scatter by them.
@@ -29,8 +30,11 @@ On the card the forward of both modes (and of raw mode,
 :mod:`ball_query_group_raw`) runs one kernel, planned by :func:`group_plan`:
 queries per block and the cloud's xyz staged in shared memory where it fits
 in 227 KB; the kernel recomputes the plan's bytes and refuses a plan that
-disagrees. The wrappers take the plain versions for CPU tensors only; a CUDA
-tensor always launches a kernel, and a shape the plan refuses or a failed
+disagrees. The plane backward runs two kernels planned by :func:`bwd_plan`:
+a CSR of the saved indices (int32 scratch, freed on return), then each
+point's list summed in order, a warp taking the lists that start in one run
+of the CSR. The wrappers take the plain versions for CPU tensors only; a CUDA
+tensor always launches a kernel, and a shape a plan refuses or a failed
 launch raises.
 """
 
@@ -42,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from or4d_tpu_torch.ops._card import BLOCK_RESERVED, H100_SMS, MAX_SMEM, SM_SMEM, align16
 from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
 from or4d_tpu_torch.ops.fps import CHUNK
 
@@ -54,17 +59,17 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_NS = 127
 _MAX_C = 256
 _MAX_RAW_C0, _MAX_RAW_C = 8, 128
-MAX_SMEM = 232448  # 227 KB: the dynamic shared memory one block can have on an H100
-# the backward keeps one cloud's inverse in shared memory: at most the
-# H100's 227 KB per block, less the kernel's 64 static bytes
-_MAX_BWD_SMEM = 227 * 1024 - 64
 # the kernels' constants the plans assume (kFwdWarps, kFwdMinBlocks,
-# kRawBwdWarps and kRawBwdTile in the source: a test holds them equal)
+# kRawBwdWarps, kRawBwdTile, kBwdSumWarps, kBwdRun and kBwdBuildThreads in
+# the source: a test holds them equal)
 _FWD_WARPS = 16
 _FWD_BLOCKS_PER_SM = 2  # the forward's __launch_bounds__ minimum: 64 registers a thread
 _RAW_BWD_WARPS, _RAW_BWD_TILE = 8, 32
-H100_SMS = 132  # the planning default off the card; a launch plans with its device's count
-_SM_SMEM, _BLOCK_RESERVED = 233472, 1024  # shared memory per SM (228 KB), and reserved per block
+# the plane backward: its sum's warps a block (kBwdSumWarps), each a run of
+# kBwdRun entries of the CSR; the CSR build's blocks of 256 threads (8 an
+# SM at most) and their static shared memory, a scan word per warp
+_BWD_SUM_WARPS, _BWD_RUN = 8, 32
+_BWD_BUILD_BLOCKS_PER_SM, _BWD_BUILD_STATIC = 8, 32
 
 
 @dataclass(frozen=True)
@@ -81,17 +86,13 @@ class GroupPlan:
     smem_bytes: int
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 def _fwd_smem_bytes(N: int, ns: int, C0: int, C: int, stage_xyz: bool) -> int:
     """The forward's shared memory (``fwd_smem`` in the source): per warp
     its hit list (in raw mode, C0 > 0, then 16 slots' raw columns of 8
     floats), a 16-byte control word, in raw mode W0 as f32 with rows of an
     even width, then the staged xyz."""
-    warp = _align16(4 * ns) + (16 * 8 * 4 if C0 else 0)
-    return _FWD_WARPS * warp + 16 + _align16(4 * C0 * (C + C % 2)) + (_align16(12 * N) if stage_xyz else 0)
+    warp = align16(4 * ns) + (16 * 8 * 4 if C0 else 0)
+    return _FWD_WARPS * warp + 16 + align16(4 * C0 * (C + C % 2)) + (align16(12 * N) if stage_xyz else 0)
 
 
 def group_plan(B: int, N: int, M: int, ns: int, C: int, C0: int = 0, sms: int = H100_SMS) -> GroupPlan:
@@ -111,7 +112,7 @@ def group_plan(B: int, N: int, M: int, ns: int, C: int, C0: int = 0, sms: int = 
     smem = _fwd_smem_bytes(N, ns, C0, C, stage_xyz)
     if smem > MAX_SMEM:
         raise ValueError(f"ball_query_group: {smem} bytes of shared memory, over {MAX_SMEM}")
-    per_sm = min(_FWD_BLOCKS_PER_SM, _SM_SMEM // (smem + _BLOCK_RESERVED))
+    per_sm = min(_FWD_BLOCKS_PER_SM, SM_SMEM // (smem + BLOCK_RESERVED))
     qb = 64
     if B * -(-M // qb) < 2 * sms * per_sm:
         qb //= 2
@@ -144,11 +145,54 @@ def fwd_launch(xyz, new_xyz, radius: float, nsample: int, need, A, raw, W0, C0: 
     return out, idx
 
 
-def bwd_smem_bytes(N: int, M: int, nsample: int) -> int:
-    """Shared memory of the backward kernel's per-cloud inverse: per point a
-    count and a list start (+1), per query its real slots, one entry per
-    slot (4 bytes each)."""
-    return 4 * (2 * N + 1 + M + M * nsample)
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the plane backward of ``csrc/ball_query_group.cu`` runs one call.
+    The CSR build takes one block per cloud, with ``segs`` placing warps
+    (each a run of the cloud's slots) and ``build_smem_bytes`` of shared
+    memory (a count per placing warp and point). The sum cuts each cloud's
+    CSR into ``runs`` runs of 32 entries, a warp summing the lists that
+    start in one, in ``sum_blocks`` blocks of 8 warps.
+    The kernel recomputes the runs, blocks and bytes and refuses a plan that
+    disagrees."""
+
+    segs: int
+    runs: int
+    sum_blocks: int
+    build_smem_bytes: int
+
+
+def bwd_plan(B: int, N: int, M: int, ns: int, C: int, sms: int = H100_SMS) -> BwdPlan:
+    """The plane backward's plan for one call; ``ValueError`` outside the
+    kernel's limits (C <= 256, nsample <= 127) or where a cloud's counts
+    and the build's 32 static bytes pass 227 KB (N over 58104).
+
+    Placing warps: of 1, 2, 4 and 8, the fewest that minimise the build's
+    waves of resident blocks times the chunks of 32 slots each placing warp
+    walks in order (a call of many clouds runs them side by side; a call of
+    few, such as 96 object crops, splits each cloud's slots). Runs of the
+    CSR: 32 entries, a warp each (short runs fill the card even on the
+    96-cloud calls)."""
+    if min(B, N, M) < 1 or not 1 <= ns <= MAX_NS or not 1 <= C <= _MAX_C:
+        raise ValueError(f"ball_query_group backward kernel limits: nsample in [1, {MAX_NS}], C <= {_MAX_C}; "
+                         f"got B={B}, N={N}, M={M}, nsample={ns}, C={C}")
+    Mns = M * ns
+    if align16(4 * N) + _BWD_BUILD_STATIC > MAX_SMEM:
+        raise ValueError(f"ball_query_group backward: {align16(4 * N)} bytes of shared memory (4 * N) and "
+                         f"{_BWD_BUILD_STATIC} static, over {MAX_SMEM}")
+    best = None
+    for segs in (1, 2, 4, 8):
+        smem = align16(4 * N * segs)
+        if smem + _BWD_BUILD_STATIC > MAX_SMEM:
+            break
+        resident = min(_BWD_BUILD_BLOCKS_PER_SM, SM_SMEM // (smem + _BWD_BUILD_STATIC + BLOCK_RESERVED))
+        chunks = -(-(-(-Mns // segs)) // 32)  # a placing warp's chunks of 32 slots
+        cost = -(-B // (sms * resident)) * chunks
+        if best is None or cost < best[0]:
+            best = (cost, segs, smem)
+    _cost, segs, smem = best
+    runs = -(-Mns // _BWD_RUN)
+    return BwdPlan(segs, runs, -(-(B * runs) // _BWD_SUM_WARPS), smem)
 
 
 def r2_of(radius: float) -> float:
@@ -256,25 +300,31 @@ def group_bwd(idx, g, N: int, launches=LAUNCHES) -> torch.Tensor:
     _check(idx, "idx", (B, M, ns), torch.int32, g.device)
     if _device_type(g, "ball_query_group backward") == "cpu":
         return group_bwd_plain(idx, g, N)
-    if C > _MAX_C or ns > MAX_NS or bwd_smem_bytes(N, M, ns) > _MAX_BWD_SMEM:
-        raise ValueError(f"ball_query_group backward kernel takes C <= {_MAX_C}, ns <= {MAX_NS} and "
-                         f"4 * (2N + 1 + M + M*ns) <= {_MAX_BWD_SMEM} bytes; got C={C}, N={N}, M={M}, ns={ns}")
+    dA = torch.empty(B, N, C, dtype=g.dtype, device=g.device)
+    if B == 0 or N == 0:
+        return dA
+    if M == 0:
+        return dA.zero_()
+    plan = bwd_plan(B, N, M, ns, C, torch.cuda.get_device_properties(g.device).multi_processor_count)
     from or4d_tpu_torch.ops._build import library
 
     fn = library("ball_query_group").or4d_group_bwd
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, I, I, I, I, I, P, P]
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [I, P, P, I, I, I, I, I, I, I, L, L, P, P, P, P, P]
     fn.restype = I
-    dA = torch.empty(B, N, C, dtype=g.dtype, device=g.device)
-    if B > 0 and M > 0 and N > 0:
-        with torch.cuda.device(g.device):
-            err = fn(DTYPES[g.dtype], idx.data_ptr(), g.data_ptr(), B, N, M, ns, C, dA.data_ptr(),
-                     torch.cuda.current_stream(g.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"ball_query_group backward kernel launch failed: CUDA error {err}")
-        launches["bwd"] += 1
-    elif N > 0:
-        dA.zero_()
+    # scratch, freed on return: the CSR of the saved indices (list starts,
+    # slot numbers) and each run's first point
+    dev = g.device
+    off = torch.empty(B, N + 1, dtype=torch.int32, device=dev)
+    ent = torch.empty(B, M * ns, dtype=torch.int32, device=dev)
+    rfirst = torch.empty(B, plan.runs, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(DTYPES[g.dtype], idx.data_ptr(), g.data_ptr(), B, N, M, ns, C, plan.segs, plan.runs,
+                 plan.sum_blocks, plan.build_smem_bytes, off.data_ptr(), ent.data_ptr(), rfirst.data_ptr(),
+                 dA.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ball_query_group backward kernel launch failed: CUDA error {err}")
+    launches["bwd"] += 1
     return dA
 
 

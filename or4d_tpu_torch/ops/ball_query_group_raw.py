@@ -33,6 +33,7 @@ from dataclasses import dataclass
 
 import torch
 
+from or4d_tpu_torch.ops._card import MAX_SMEM, align16
 from or4d_tpu_torch.ops.ball_query_group import (
     _MAX_RAW_C as _MAX_C,
     _MAX_RAW_C0 as _MAX_C0,
@@ -40,8 +41,6 @@ from or4d_tpu_torch.ops.ball_query_group import (
     _RAW_BWD_WARPS as _BWD_WARPS,
     DTYPES,
     MAX_NS,
-    MAX_SMEM,
-    _align16,
     _check,
     _check_geometry,
     _device_type,
@@ -83,7 +82,7 @@ def raw_bwd_plan(B: int, M: int, ns: int, C0: int, C: int) -> RawBwdPlan:
     tiles = B * -(-M // _BWD_TILE)
     per_block = -(-tiles // _MAX_PARTIALS)
     # per warp a (C0, C) f32 tile, then per warp 32 slots' raw columns of 8 floats
-    smem = _align16(_BWD_WARPS * C0 * C * 4) + _BWD_WARPS * 32 * 8 * 4
+    smem = align16(_BWD_WARPS * C0 * C * 4) + _BWD_WARPS * 32 * 8 * 4
     if smem > MAX_SMEM:
         raise ValueError(f"ball_query_group_raw backward: {smem} bytes of shared memory, over {MAX_SMEM}")
     return RawBwdPlan(tiles, per_block, -(-tiles // per_block), smem)
@@ -98,12 +97,14 @@ def group_raw_fwd_plain(xyz, new_xyz, radius: float, nsample: int, W0, raw, need
 
 
 def group_raw_bwd_plain(idx, g, raw) -> torch.Tensor:
-    """The plain backward: dW0 (C0, C) in raw's dtype."""
+    """The plain backward: dW0 (C0, C) in raw's dtype, summed in float32
+    (in float64 for float64 operands)."""
+    acc = torch.promote_types(raw.dtype, torch.float32)
     rows = torch.arange(raw.shape[0], device=raw.device)[:, None, None]
     idx = idx.long()
-    picked = raw.float().transpose(1, 2)[rows, idx.clamp(min=0)]  # (B, M, ns, C0)
+    picked = raw.to(acc).transpose(1, 2)[rows, idx.clamp(min=0)]  # (B, M, ns, C0)
     picked = picked * (idx >= 0)[..., None]
-    return torch.einsum("bmsi,bmsc->ic", picked, g.float()).to(raw.dtype)
+    return torch.einsum("bmsi,bmsc->ic", picked, g.to(acc)).to(raw.dtype)
 
 
 def _check_raw(xyz, W0, raw):

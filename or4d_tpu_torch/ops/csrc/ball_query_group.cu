@@ -47,8 +47,9 @@
 //     bound in shared memory with cp.async, where it fits in 227 KB (two
 //     blocks an SM at 8000 points). A warp takes one query at a time from a
 //     shared counter and searches it with `search_x4` (ball_search.cuh:
-//     four points a lane per step, three 16-byte loads, one vote for the
-//     steps without a hit), into a per-warp hit list. Then the rows, lanes
+//     the one-scale `search_multi_x4`, four points a lane per step, three
+//     16-byte loads, one vote for the steps without a hit), into a per-warp
+//     hit list. Then the rows, lanes
 //     owning adjacent channel pairs, one 8-byte (f32) or 4-byte (bf16) store
 //     a lane per row. Raw mode: 16 slots at a time, lanes fetch the slots'
 //     raw columns (all loads in flight at once) into a per-warp buffer; each
@@ -58,26 +59,26 @@
 //     fmaf chain over i = 0..C0-1 keeps the rows bit-equal to the plain
 //     version. Plane mode: 32 slots at a time, four rows loaded ahead of
 //     their stores.
-//   * plane backward: bytes (g read once, dA written once). Deterministic,
-//     no atomics in the sums: one block per cloud builds the inverse of its
-//     saved indices once in shared memory, as a list per support point
-//     (count with shared atomics, exclusive scan, fill), puts each list in
-//     query order (its entries are distinct queries; a rank sort in
-//     registers, or one lane past 32 entries), and one warp per support
-//     point sums the cotangent rows that reach it in (query, slot) order: a
-//     real hit, then, for a first hit, the query's filled slots. That is the
-//     order of a sequential scatter over the flattened slots; the atomics
-//     only count and place, the sort makes the order. The scan of the saved
-//     indices is one coalesced pass, a thread per slot: a slot is real when
-//     it is slot 0 or differs from slot 0 (real hits are distinct and come
-//     first; filled slots repeat the first hit). The sum keeps up to four
-//     cotangent rows in flight per warp (loads first, then the adds in
-//     order): one row at a time leaves the warp waiting on each load. The
-//     lists take (2N + 1 + M + M*ns) ints, 131.6 KB for an SA1 cloud (N
-//     8000, M 512, ns 32); shapes whose lists do not fit are refused. A block
-//     per cloud, not per tile of its points: per-tile blocks each rescan
-//     the cloud's M*ns slots and clear a (point, query) table, 7x the bytes
-//     bound on SA1 on an H100.
+//   * plane backward: bytes (g read once, dA written once), read as rows
+//     gathered from all over the cotangent. Deterministic, no atomics in the
+//     sums; two kernels planned by `bwd_plan` (ops/ball_query_group.py),
+//     which the launch checks. A filled slot holds its query's first hit, so
+//     every slot of a query with a hit has one target point, and a point's
+//     slots in slot order are the order of a sequential scatter over the
+//     flattened slots. `group_bwd_build`, a block per cloud, inverts the
+//     saved indices into a CSR in global memory (int32 scratch, 64 MB for
+//     the S=8 step's largest call): counts by shared-memory atomics, a scan,
+//     then warps that place the slots 32 at a time in order (one a cloud
+//     where many clouds fill the card; 8, each a run of the cloud's slots,
+//     for the 96-cloud calls), so no list needs a sort. `group_bwd_sum`
+//     sums each point's list in order: a warp takes the points whose lists
+//     start in one run of 32 CSR entries, so a first hit that collects
+//     hundreds of filled slots holds up one warp, not the 31 other points
+//     of a fixed tile (SA2's longest lists hold 431 entries, SA1's points
+//     about two); eight rows in flight, lanes on channel pairs. The first
+//     design kept a cloud's lists in shared memory (131.6 KB for SA1: one
+//     block an SM, nothing streaming during the build; 0.38 of its bound on
+//     SA1).
 //   * raw backward: bytes (g read once; the C0 x C products per slot are
 //     ~0.25 ms of FP32-pipe work at S=8). The queries are cut into tiles of
 //     32 of one cloud, and each block of 8 warps takes `tiles_per_block`
@@ -102,13 +103,16 @@
 
 namespace {
 
-constexpr int kMaxCL = 8;  // plane backward: channels per lane, C <= 256
-constexpr int kMaxC = 32 * kMaxCL;
+constexpr int kMaxC = 256;     // plane mode: C <= 256
 constexpr int kMaxRawC = 128;  // raw mode: C <= 128
-constexpr int kMaxNs = 127;  // a slot fits the 7 bits of a backward list entry
+constexpr int kMaxNs = 127;
 constexpr int kMaxC0 = 8;
 constexpr int kChunk = 512;
-constexpr int kBwdThreads = 512;  // plane backward: threads per cloud
+constexpr int kBwdBuildThreads = 256;  // plane backward's CSR build: threads per cloud
+constexpr int kBwdBuildAhead = 4;      // plane backward's CSR build: chunks of 32 slots loaded a batch ahead
+constexpr int kBwdSumWarps = 8;        // plane backward's sum: warps (runs of the CSR) per block
+constexpr int kBwdRun = 32;            // plane backward's sum: CSR entries whose lists a warp starts (a run)
+constexpr int kBwdInFlight = 8;        // plane backward's sum: cotangent rows loaded ahead of their adds
 constexpr int kFwdWarps = 16;     // forward: warps per block
 constexpr int kFwdMinBlocks = 2;  // forward: resident blocks an SM (__launch_bounds__), 64 registers a thread
 constexpr int kFwdInFlight = 4;   // plane forward: rows loaded ahead of their stores
@@ -167,12 +171,20 @@ __device__ __forceinline__ typename PairOf<T>::type pair_of(float v0, float v1) 
   return v;
 }
 
-// plane backward: dynamic shared memory of one cloud's inverse, as ints:
-// per point a count and a list start (+1), per query its real slots, and
-// one entry per slot
-inline size_t bwd_smem(int N, int M, int ns) { return sizeof(int) * ((size_t)2 * N + 1 + M + (size_t)M * ns); }
-
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// plane backward: the CSR build's dynamic shared memory, a count (then a
+// cursor) per placing warp and point (ops/ball_query_group.py `bwd_plan`
+// computes the same)
+inline size_t bwd_build_smem(int N, int segs) { return align16((size_t)N * segs * 4); }
+
+struct BwdArgs {
+  const int* idx;  // (B, M, ns)
+  int B, N, Mns, C, segs, R;
+  unsigned sum_blocks;
+  size_t build_smem;
+  int *off, *ent, *rfirst;
+};
 
 // The forward's dynamic shared memory (ops/ball_query_group.py
 // `_fwd_smem_bytes` computes the same): per warp its hit list, a 16-byte
@@ -363,162 +375,197 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks) group_fwd_kerne
   }
 }
 
-// r[] = row gr (C channels, lane-owned) as f32
-template <typename T>
-__device__ __forceinline__ void load_row(float (&r)[kMaxCL], const T* gr, int C, int lane) {
-#pragma unroll
-  for (int j = 0; j < kMaxCL; ++j) {
-    const int c = lane + 32 * j;
-    r[j] = c < C ? to_f(gr[c]) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void add_to(float (&acc)[kMaxCL], const float (&r)[kMaxCL]) {
-#pragma unroll
-  for (int j = 0; j < kMaxCL; ++j) acc[j] += r[j];
-}
-
-constexpr int kInFlight = 4;  // cotangent rows loaded ahead of their adds
-
-// acc += rows [k0, ns) of one query's slots (gm: its slot 0), in slot order
-template <typename T>
-__device__ __forceinline__ void add_fill(float (&acc)[kMaxCL], const T* gm, int k0, int ns, int C, int lane) {
-  for (int k = k0; k < ns; k += kInFlight) {
-    float r[kInFlight][kMaxCL];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u)
-      if (k + u < ns) load_row(r[u], gm + (size_t)(k + u) * C, C, lane);
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u)
-      if (k + u < ns) add_to(acc, r[u]);
-  }
-}
-
-// acc += the rows of up to kInFlight real slots (qm[u], qk[u]) of one cloud
-// (gb: its g; qm < 0: none), in order, a first hit (slot 0) followed by its
-// query's filled slots; the rows are loaded before the adds
-template <typename T>
-__device__ __forceinline__ void add_slots(float (&acc)[kMaxCL], const T* gb, const int (&qm)[kInFlight],
-                                          const int (&qk)[kInFlight], const int* s_thr, int ns, int C, int lane) {
-  float r[kInFlight][kMaxCL];
-#pragma unroll
-  for (int u = 0; u < kInFlight; ++u)
-    if (qm[u] >= 0) load_row(r[u], gb + ((size_t)qm[u] * ns + qk[u]) * C, C, lane);
-#pragma unroll
-  for (int u = 0; u < kInFlight; ++u) {
-    if (qm[u] < 0) continue;
-    add_to(acc, r[u]);
-    if (qk[u] == 0) add_fill(acc, gb + (size_t)qm[u] * ns * C, s_thr[qm[u]], ns, C, lane);
-  }
-}
-
-// The plane backward's slot scan, one thread per slot of cloud b's idx
-// (coalesced): real(m, k, p) for every real slot, and the count of
-// real slots of each query into s_thr (0 with no hit).
-template <typename F>
-__device__ __forceinline__ void scan_real_slots(const int* I, int M, int ns, int* s_thr, F real) {
-  for (int e = threadIdx.x; e < M * ns; e += blockDim.x) {
-    const int m = e / ns, k = e - m * ns;
-    const int p = I[e], p0 = I[e - k];
-    if (p0 < 0) {
-      if (k == 0) s_thr[m] = 0;
-      continue;
-    }
-    if (k > 0 && p == p0) continue;  // a filled slot
-    real(m, k, p);
-    if (k == ns - 1 || I[e + 1] == p0) s_thr[m] = k + 1;
-  }
-}
-
-// dA[b, n, :] = sum of g rows routed to support point n, in (query, slot)
-// order; one block per cloud: the inverse of the cloud's real slots built
-// once, as lists per support point (count, exclusive scan, fill), each list
-// put in query order (its entries are distinct queries), then one warp per
-// support point sums its list.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-group_bwd_kernel(const int* __restrict__ idx, const T* __restrict__ g, int N, int M, int ns, int C,
-                 T* __restrict__ dA) {
+// The plane backward's inverse of one cloud's saved indices, as a CSR in
+// global memory: off (N + 1) list starts and ent (M * ns) slot numbers
+// (m * ns + k), each point's list in ascending slot order. A slot's target
+// is its saved index (a filled slot holds the first hit, -1 a query with no
+// hit), so every slot of a query with a hit is on exactly one list, and a
+// point's list in slot order is the order of a sequential scatter over the
+// flattened slots. The slots are cut into `segs` runs of seg_len (a
+// multiple of 32), one placing warp each: counts per run and point by
+// shared-memory atomics (integers: the same in any order), an exclusive
+// scan over the points' totals into off, each run's cursor at a point
+// starting after the earlier runs' entries; then each placing warp places
+// its run 32 slots at a time in order, lanes with the same target ranked
+// among themselves (__match_any_sync) and their leader advancing the
+// target's cursor, so each list is filled in slot order with no sort. Also
+// writes rfirst (R): for each run of E = kBwdRun entries of the CSR that
+// the sum takes, the first point whose list starts at or after the run's start
+// (N where none does). Shared memory: segs * N ints.
+__global__ void __launch_bounds__(kBwdBuildThreads)
+group_bwd_build(const int* __restrict__ idx, int N, int Mns, int segs, int R, int* __restrict__ off,
+                int* __restrict__ ent, int* __restrict__ rfirst) {
+  constexpr int E = kBwdRun;
   extern __shared__ __align__(16) unsigned char smem[];
-  int* cnt = reinterpret_cast<int*>(smem);  // [N]: real slots per point, then a fill cursor
-  int* off = cnt + N;                       // [N + 1]: list starts
-  int* s_thr = off + N + 1;                 // [M]: real slots per query
-  int* list = s_thr + M;                    // [real slots]: m << 7 | k
-  __shared__ int s_warp[kBwdThreads / 32];
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const int* I = idx + (size_t)b * M * ns;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
+  int* cnt = reinterpret_cast<int*>(smem);  // [segs][N]: counts, then cursors
+  __shared__ int s_warp[kBwdBuildThreads / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int* I = idx + (size_t)b * Mns;
+  int* ob = off + (size_t)b * (N + 1);
+  int* eb = ent + (size_t)b * Mns;
+  int* fb = rfirst + (size_t)b * R;
+  const int seg_len = ((Mns + segs - 1) / segs + 31) & ~31;
+  for (int i = tid; i < segs * N; i += blockDim.x) cnt[i] = 0;
+  for (int k = tid; k < R; k += blockDim.x) fb[k] = N;
   __syncthreads();
-  scan_real_slots(I, M, ns, s_thr, [&](int, int, int p) { atomicAdd(&cnt[p], 1); });
+  for (int e = tid; e < Mns; e += blockDim.x) {
+    const int p = I[e];
+    if ((unsigned)p < (unsigned)N) atomicAdd(&cnt[(e / seg_len) * N + p], 1);
+  }
   __syncthreads();
-
-  // exclusive scan of cnt into off: a contiguous run of points per thread
-  const int per = (N + blockDim.x - 1) / blockDim.x;
-  const int lo = min(N, threadIdx.x * per), hi = min(N, lo + per);
-  int run = 0;
-  for (int i = lo; i < hi; ++i) run += cnt[i];
-  int incl = run;
+  // exclusive scan of the points' totals into off, a tile of blockDim points
+  // at a time (a point a thread: no bank conflicts); each run's cursor at a
+  // point starts after the earlier runs' entries
+  int carry = 0;
+  for (int t0 = 0; t0 < N; t0 += blockDim.x) {
+    const int i = t0 + tid;
+    int v = 0;
+    if (i < N)
+      for (int s = 0; s < segs; ++s) v += cnt[s * N + i];
+    int incl = v;
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += u;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int before = carry, tile = 0;
+    for (int w = 0; w < kBwdBuildThreads / 32; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      tile += s_warp[w];
+    }
+    if (i < N) {
+      int c = before + incl - v;
+      ob[i] = c;
+      for (int s = 0; s < segs; ++s) {
+        const int n = cnt[s * N + i];
+        cnt[s * N + i] = c;
+        c += n;
+      }
+    }
+    carry += tile;
+    __syncthreads();
   }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int base = incl - run;
-  for (int w = 0; w < warp; ++w) base += s_warp[w];
-  for (int i = lo; i < hi; ++i) {
-    off[i] = base;
-    base += cnt[i];
+  if (tid == 0) ob[N] = carry;
+  // rfirst[k] = i for the runs k whose start k * E lies in (off[i - 1], off[i]]
+  // (run 0's cursors are the list starts)
+  for (int i = tid; i < N; i += blockDim.x) {
+    const int prev = i > 0 ? cnt[i - 1] : -1, start = cnt[i];
+    for (int k = prev < 0 ? 0 : prev / E + 1; k <= start / E && k < R; ++k) fb[k] = i;
   }
-  if (threadIdx.x == blockDim.x - 1) off[N] = base;
   __syncthreads();
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt[i] = 0;
-  __syncthreads();
-  scan_real_slots(I, M, ns, s_thr, [&](int m, int k, int p) { list[off[p] + atomicAdd(&cnt[p], 1)] = (m << 7) | k; });
-  __syncthreads();
-
-  const T* gb = g + (size_t)b * M * ns * C;
-  for (int n = warp; n < N; n += warps) {
-    const int s0 = off[n], L = off[n + 1] - s0;
-    int* seg = list + s0;
-    // query order: rank by comparison in registers, or by one lane past 32
-    if (L > 1 && L <= 32) {
-      const int key = lane < L ? seg[lane] : 0x7fffffff;
-      int rank = 0;
-      for (int j = 0; j < L; ++j) rank += __shfl_sync(0xffffffffu, key, j) < key;
+  if (warp >= segs) return;
+  int* cur = cnt + warp * N;  // this warp's cursors
+  const int e_lo = warp * seg_len, e_hi = min(Mns, e_lo + seg_len);
+  const unsigned below = (1u << lane) - 1u;
+  int p[kBwdBuildAhead];  // the next chunks' targets, loaded a batch ahead
+#pragma unroll
+  for (int u = 0; u < kBwdBuildAhead; ++u) {
+    const int e = e_lo + 32 * u + lane;
+    p[u] = e < e_hi ? I[e] : -1;
+  }
+  for (int e0 = e_lo; e0 < e_hi; e0 += 32 * kBwdBuildAhead) {
+    int key[kBwdBuildAhead];
+    unsigned grp[kBwdBuildAhead];
+#pragma unroll
+    for (int u = 0; u < kBwdBuildAhead; ++u) {
+      key[u] = (unsigned)p[u] < (unsigned)N ? p[u] : -1;
+      grp[u] = __match_any_sync(kFull, key[u]);
+      const int e = e0 + 32 * (kBwdBuildAhead + u) + lane;
+      p[u] = e < e_hi ? I[e] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdBuildAhead; ++u) {
+      const int leader = __ffs(grp[u]) - 1;
+      int pos = 0;
+      if (key[u] >= 0 && lane == leader) {
+        pos = cur[key[u]];
+        cur[key[u]] = pos + __popc(grp[u]);
+      }
       __syncwarp();
-      if (lane < L) seg[rank] = key;
-    } else if (L > 32 && lane == 0) {
-      for (int i = 1; i < L; ++i) {
-        const int key = seg[i];
-        int j = i - 1;
-        for (; j >= 0 && seg[j] > key; --j) seg[j + 1] = seg[j];
-        seg[j + 1] = key;
-      }
-    }
-    __syncwarp();
-    float acc[kMaxCL];
-#pragma unroll
-    for (int j = 0; j < kMaxCL; ++j) acc[j] = 0.0f;
-    for (int i = 0; i < L; i += kInFlight) {
-      int qm[kInFlight], qk[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) {
-        const int key = i + u < L ? seg[i + u] : -1;
-        qm[u] = key >= 0 ? key >> 7 : -1;
-        qk[u] = key >= 0 ? key & 127 : 0;
-      }
-      add_slots(acc, gb, qm, qk, s_thr, ns, C, lane);
-    }
-    T* out = dA + ((size_t)b * N + n) * C;
-#pragma unroll
-    for (int j = 0; j < kMaxCL; ++j) {
-      const int c = lane + 32 * j;
-      if (c < C) out[c] = from_f<T>(acc[j]);
+      pos = __shfl_sync(kFull, pos, leader);
+      if (key[u] >= 0) eb[pos + __popc(grp[u] & below)] = e0 + 32 * u + lane;
     }
   }
+}
+
+// dA (B, N, C) from the CSR: the sum, in f32 and in list (slot) order, of
+// the cotangent rows on each point's list, rounded once to T. A warp takes
+// the points whose lists start in one run of kBwdRun entries of the CSR
+// (`rfirst`), so each warp starts about as much work whatever the lists'
+// lengths (a first hit collects every filled slot of its queries), and
+// streams their lists, one contiguous stretch of the CSR, to the end of its
+// last point's list: kBwdInFlight rows loaded ahead of their adds, lanes on
+// channel pairs (JP pairs a lane, C <= 64 * JP); a point with an empty list
+// gets a zero row.
+template <typename T, int JP>
+__global__ void __launch_bounds__(kBwdSumWarps * 32)
+group_bwd_sum(const int* __restrict__ off, const int* __restrict__ ent, const int* __restrict__ rfirst,
+              const T* __restrict__ g, int B, int N, int Mns, int C, int R, T* __restrict__ dA) {
+  using P2 = typename PairOf<T>::type;
+  const int lane = threadIdx.x & 31;
+  const long long run = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (run >= (long long)B * R) return;
+  const int b = (int)(run / R), k = (int)(run - (long long)b * R);
+  const int lo = rfirst[(size_t)b * R + k], hi = k + 1 < R ? rfirst[(size_t)b * R + k + 1] : N;
+  if (lo >= hi) return;
+  const int* ob = off + (size_t)b * (N + 1);
+  const int* eb = ent + (size_t)b * Mns;
+  const T* gb = g + (size_t)b * Mns * C;
+  T* db = dA + (size_t)b * N * C;
+  const bool vec = !(C & 1) && pair_aligned<T>(g) && pair_aligned<T>(dA);
+  const int E0 = ob[lo], E1 = ob[hi];
+  float acc[JP][2];
+#pragma unroll
+  for (int j = 0; j < JP; ++j) acc[j][0] = acc[j][1] = 0.0f;
+  // the list ends of points wbase .. wbase + 31, one a lane
+  int cur = lo, wbase = lo;
+  int win = wbase + lane < N ? ob[wbase + lane + 1] : 0x7fffffff;
+  int cur_end = __shfl_sync(kFull, win, 0);
+  auto finish = [&]() {  // point cur's row out; the next point's sum starts at 0
+#pragma unroll
+    for (int j = 0; j < JP; ++j) {
+      const int c = 2 * (lane + 32 * j);
+      if (c < C) store2<T>(db + (size_t)cur * C, c, C, vec, pair_of<T>(acc[j][0], acc[j][1]));
+      acc[j][0] = acc[j][1] = 0.0f;
+    }
+    if (++cur - wbase >= 32) {
+      wbase = cur;
+      win = wbase + lane < N ? ob[wbase + lane + 1] : 0x7fffffff;
+    }
+    cur_end = __shfl_sync(kFull, win, cur - wbase);
+  };
+  for (int c0 = E0; c0 < E1; c0 += 32) {
+    const int cnt = min(32, E1 - c0);
+    const int e_lane = lane < cnt ? eb[c0 + lane] : 0;  // slot numbers, coalesced
+    for (int u0 = 0; u0 < cnt; u0 += kBwdInFlight) {
+      P2 v[kBwdInFlight][JP];
+#pragma unroll
+      for (int u = 0; u < kBwdInFlight; ++u) {
+        const T* row = gb + (size_t)__shfl_sync(kFull, e_lane, (u0 + u) & 31) * C;
+#pragma unroll
+        for (int j = 0; j < JP; ++j) {
+          const int c = 2 * (lane + 32 * j);
+          if (u0 + u < cnt && c < C) v[u][j] = load2<T>(row, c, C, vec);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBwdInFlight; ++u) {
+        if (u0 + u >= cnt) break;
+        while (c0 + u0 + u >= cur_end) finish();  // warp-uniform: past the end of point cur's list
+#pragma unroll
+        for (int j = 0; j < JP; ++j) {
+          const int c = 2 * (lane + 32 * j);
+          if (c < C) {
+            acc[j][0] += to_f(v[u][j].x);
+            acc[j][1] += to_f(v[u][j].y);
+          }
+        }
+      }
+    }
+  }
+  while (cur < hi) finish();  // the last list's point and any empty lists after it
 }
 
 // partial[blk] (C0, C) = sum over the slots of tiles
@@ -682,20 +729,25 @@ cudaError_t launch_fwd(const FwdArgs& a, size_t smem, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t launch_bwd(const int* idx, const void* g, int B, int N, int M, int ns, int C, void* dA,
-                       cudaStream_t stream) {
-  const size_t smem = bwd_smem(N, M, ns);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem + sizeof(int) * kBwdThreads / 32 > (size_t)optin) return cudaErrorInvalidValue;  // + its static s_warp
-  err = cudaFuncSetAttribute(group_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  group_bwd_kernel<T><<<B, kBwdThreads, smem, stream>>>(idx, static_cast<const T*>(g), N, M, ns, C,
-                                                         static_cast<T*>(dA));
+template <typename T, int JP>
+cudaError_t launch_bwd_sum(const BwdArgs& a, const void* g, void* dA, cudaStream_t stream) {
+  group_bwd_sum<T, JP><<<a.sum_blocks, kBwdSumWarps * 32, 0, stream>>>(
+      a.off, a.ent, a.rfirst, static_cast<const T*>(g), a.B, a.N, a.Mns, a.C, a.R, static_cast<T*>(dA));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, const void* g, void* dA, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(group_bwd_build, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.build_smem);
+  if (err != cudaSuccess) return err;
+  group_bwd_build<<<a.B, kBwdBuildThreads, a.build_smem, stream>>>(a.idx, a.N, a.Mns, a.segs, a.R, a.off, a.ent,
+                                                                    a.rfirst);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.C <= 64) return launch_bwd_sum<T, 1>(a, g, dA, stream);
+  if (a.C <= 128) return launch_bwd_sum<T, 2>(a, g, dA, stream);
+  return launch_bwd_sum<T, 4>(a, g, dA, stream);
 }
 
 template <typename T, int JP>
@@ -740,18 +792,29 @@ extern "C" int or4d_group_fwd(int dtype, const float* xyz, const float* new_xyz,
 }
 
 // Plane-mode backward: g (B, M, ns, C) and the forward's idx -> dA (B, N, C),
-// all of g's dtype. C <= 256, and one cloud's inverse (bwd_smem) must fit in
-// a block's shared memory.
-extern "C" int or4d_group_bwd(int dtype, const int* idx, const void* g, int B, int N, int M, int ns, int C, void* dA,
-                              void* stream) {
+// all of g's dtype; C <= 256. segs, R, sum_blocks and smem_bytes are the
+// wrapper's plan (`bwd_plan`): segs 1, 2, 4 or 8 placing warps, R =
+// ceil(M * ns / kBwdRun) runs a cloud, sum_blocks = ceil(B * R / 8) and
+// smem_bytes `bwd_build_smem` (with the build's 32 static bytes at most 227
+// KB), or the launch is refused.
+// int32 scratch: off (B, N + 1), ent (B, M * ns) and rfirst (B, R).
+extern "C" int or4d_group_bwd(int dtype, const int* idx, const void* g, int B, int N, int M, int ns, int C, int segs,
+                              int R, long long sum_blocks, long long smem_bytes, int* off, int* ent, int* rfirst,
+                              void* dA, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || ns <= 0 || ns > kMaxNs || C <= 0 || C > kMaxC ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (segs != 1 && segs != 2 && segs != 4 && segs != kBwdBuildThreads / 32))
     return (int)cudaErrorInvalidValue;
+  const long long Mns = (long long)M * ns;
+  const size_t smem = bwd_build_smem(N, segs);
+  // the build's counts beside its static scan words must fit a block
+  if (Mns > 0x7fffffffLL || (Mns + kBwdRun - 1) / kBwdRun != R ||
+      ((long long)B * R + kBwdSumWarps - 1) / kBwdSumWarps != sum_blocks || sum_blocks > 0x7fffffffLL ||
+      smem != (size_t)smem_bytes || smem + sizeof(int) * (kBwdBuildThreads / 32) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a{idx, B, N, (int)Mns, C, segs, R, (unsigned)sum_blocks, smem, off, ent, rfirst};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_bwd<float>(idx, g, B, N, M, ns, C, dA, st)
-                          : launch_bwd<__nv_bfloat16>(idx, g, B, N, M, ns, C, dA, st));
+  return (int)(dtype == 0 ? launch_bwd<float>(a, g, dA, st) : launch_bwd<__nv_bfloat16>(a, g, dA, st));
 }
-
 
 // Raw-mode backward: g (B, M, ns, C), raw (B, C0, N) and the forward's idx ->
 // dW0 (C0, C), all of raw's dtype. tiles_per_block, blocks and smem_bytes are

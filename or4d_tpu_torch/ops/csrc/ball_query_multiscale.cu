@@ -8,112 +8,173 @@
 // serving cache build runs once per fixed eval set. Rounding matches it:
 // d2 = (dx*dx + dy*dy) + dz*dz with each op rounded alone (no FMA
 // contraction) and the strict test d2 < r2, r2 the f32 of r*r (rounded on the
-// host).
+// host). 1 to 4 scales, radii in any order, ns up to 1024.
 //
-// What bounds it on the H100: one distance per scanned point (9 FP32 ops)
-// plus a compare per scale; with first-hit stops most queries scan far fewer
-// than N points, but a query short of `ns` hits at its widest scale scans the
-// whole cloud. The search is latency-bound (a dependent ballot per 32
-// points). Design: one warp per query, 8 warps per block on consecutive
-// queries (mostly one cloud, whose points then stay in L1); each step every
-// lane computes one distance once for all scales, and each scale still
-// short of its `ns` hits takes one __ballot_sync and __popc ranks to place
-// its hits straight into the output row. The warp stops when every scale
-// has its `ns` hits and fills the rest of each row with that scale's first
-// hit. No prefix sums, tiles or padding.
+// What bounds it on the H100: the search's instructions. There is no search
+// bound (`need`): a query short of `ns` hits at any scale reads the whole
+// cloud, and on the serving cache build's relation crops (8000 points, radii
+// 0.1 and 0.2) most queries are, so the searches test ~6000 points a query
+// (9 FP32 operations a point). The index rows written are a few bytes a
+// query beside that.
+//
+// Design (the train grouping forward's, ball_query_group.cu): blocks of
+// `warps` warps take `block_queries` consecutive queries of one cloud
+// (ops/ball_query_multiscale.py `multiscale_plan`, whose shared-memory
+// layout `ms_smem` below repeats; the launch refuses a plan whose bytes
+// disagree) and stage the cloud's xyz in shared memory with cp.async where it
+// fits in 227 KB (96 KB for 8000 points: two blocks an SM); a larger cloud is
+// searched in global memory. A warp takes one query at a time from a shared
+// counter and searches every scale at once with `search_multi_x4`
+// (ball_search.cuh: four points a lane per step from three 16-byte loads,
+// each distance computed once for all scales, one vote over the union of
+// the open scales' hits, three ballots to rank a scale's hits), into
+// per-warp hit lists in shared memory; then each scale's row is written
+// with its fill, lanes on consecutive slots (coalesced).
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+#include <stdint.h>
+
+#include "ball_search.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
 constexpr int kMaxScales = 4;
 constexpr int kMaxNs = 1024;
+constexpr int kMaxWarps = 16;        // warps a block: 16, or 8 where the plan finds 16 warps' lists too large
+constexpr int kMinBlocks = 2;        // resident blocks an SM (__launch_bounds__): 64 registers a thread
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can have
 
-struct BQArgs {
-  const float* xyz;      // (B, N, 3)
-  const float* new_xyz;  // (B, M, 3)
-  int B, N, M, S;
-  float r2[kMaxScales];
-  int ns[kMaxScales];
-  int* out[kMaxScales];  // (B, M, ns[s]) each
-};
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-__device__ __forceinline__ float sqdist(float dx, float dy, float dz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+// The block's dynamic shared memory (ops/ball_query_multiscale.py
+// `_smem_bytes` computes the same): per warp its hit lists (sum of ns ints),
+// a 16-byte control word, then the staged xyz.
+inline size_t ms_warp_bytes(const int* ns, int S) {
+  size_t n = 0;
+  for (int s = 0; s < S; ++s) n += (size_t)ns[s];
+  return align16(4 * n);
+}
+inline size_t ms_smem(int warps, size_t warp_bytes, int N, bool stage_xyz) {
+  return (size_t)warps * warp_bytes + 16 + (stage_xyz ? align16((size_t)N * 12) : 0);
 }
 
-__global__ void __launch_bounds__(kWarps * 32) ball_query_multiscale_kernel(BQArgs a) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long q = (long long)blockIdx.x * kWarps + warp;  // query over B*M
-  if (q >= (long long)a.B * a.M) return;  // whole warp
-  const int b = (int)(q / a.M);
-  const float* xyz = a.xyz + (size_t)b * a.N * 3;
-  const float qx = a.new_xyz[3 * q], qy = a.new_xyz[3 * q + 1], qz = a.new_xyz[3 * q + 2];
+struct MsArgs {
+  const float* xyz;      // (B, N, 3)
+  const float* new_xyz;  // (B, M, 3)
+  int B, N, M;
+  float r2[kMaxScales];
+  int ns[kMaxScales];
+  int list_off[kMaxScales];  // scale s's hit list in a warp's region, in ints
+  int* out[kMaxScales];      // (B, M, ns[s]) each
+  int warp_ints;             // a warp's region, in ints
+  int qb;                    // queries per block
+  int stage_xyz;
+};
 
-  int cnt[kMaxScales], first[kMaxScales];
+template <int S>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) ball_query_multiscale_kernel(MsArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31, warps = nthr >> 5;
+  const int N = a.N, M = a.M;
+  int* s_ctl = reinterpret_cast<int*>(smem) + warps * a.warp_ints;  // [next query]
+  float r2[S];
+  int ns[S];
+  int* lists[S];
+  int cnt[S];
 #pragma unroll
-  for (int s = 0; s < kMaxScales; ++s) {
-    cnt[s] = 0;
-    first[s] = -1;
+  for (int s = 0; s < S; ++s) {
+    r2[s] = a.r2[s];
+    ns[s] = a.ns[s];
+    lists[s] = reinterpret_cast<int*>(smem) + warp * a.warp_ints + a.list_off[s];
   }
-  // cnt and first come from ballots, so every branch on them is warp-uniform
-  bool open = true;
-  for (int base = 0; base < a.N && open; base += 32) {
-    const int i = base + lane;
-    float d2 = CUDART_INF_F;
-    if (i < a.N) d2 = sqdist(qx - xyz[3 * i], qy - xyz[3 * i + 1], qz - xyz[3 * i + 2]);
-    open = false;
+
+  const int blocks_per_cloud = (M + a.qb - 1) / a.qb;
+  const int b = blockIdx.x / blocks_per_cloud;
+  const int q0 = (blockIdx.x % blocks_per_cloud) * a.qb;
+  const int nq = min(a.qb, M - q0);
+
+  if (tid == 0) s_ctl[0] = 0;
+  const float* pts = a.xyz + (size_t)b * N * 3;
+  bool vec = !(reinterpret_cast<uintptr_t>(pts) & 15);
+  if (a.stage_xyz) {
+    float* s_xyz = reinterpret_cast<float*>(s_ctl + 4);
+    ball_search::stage_points(s_xyz, pts, N, tid, nthr);
+    pts = s_xyz;
+    vec = true;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  while (true) {
+    int qi = 0;
+    if (lane == 0) qi = atomicAdd(s_ctl, 1);
+    qi = __shfl_sync(0xffffffffu, qi, 0);
+    if (qi >= nq) break;
+    const size_t row = (size_t)b * M + q0 + qi;
+    const float qx = a.new_xyz[3 * row], qy = a.new_xyz[3 * row + 1], qz = a.new_xyz[3 * row + 2];
+    ball_search::search_multi_x4<S>(pts, vec, N, qx, qy, qz, r2, ns, lists, cnt, lane);
+    __syncwarp();
 #pragma unroll
-    for (int s = 0; s < kMaxScales; ++s) {
-      if (s < a.S && cnt[s] < a.ns[s]) {
-        const bool hit = d2 < a.r2[s];
-        const unsigned m = __ballot_sync(0xffffffffu, hit);
-        if (m != 0u) {
-          if (first[s] < 0) first[s] = base + __ffs(m) - 1;
-          if (hit) {
-            const int r = cnt[s] + __popc(m & ((1u << lane) - 1u));
-            if (r < a.ns[s]) a.out[s][q * a.ns[s] + r] = i;
-          }
-          cnt[s] += __popc(m);
-        }
-        open = open || cnt[s] < a.ns[s];
-      }
+    for (int s = 0; s < S; ++s) {
+      const int n = min(cnt[s], ns[s]);
+      const int fill = n > 0 ? lists[s][0] : 0;
+      int* o = a.out[s] + row * ns[s];
+      for (int k = lane; k < ns[s]; k += 32) o[k] = k < n ? lists[s][k] : fill;
     }
+    __syncwarp();
   }
-#pragma unroll
-  for (int s = 0; s < kMaxScales; ++s) {
-    if (s < a.S) {
-      const int fill = first[s] < 0 ? 0 : first[s];
-      int* row = a.out[s] + q * a.ns[s];
-      for (int k = min(cnt[s], a.ns[s]) + lane; k < a.ns[s]; k += 32) row[k] = fill;
-    }
-  }
+}
+
+template <int S>
+cudaError_t launch(const MsArgs& a, int warps, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(ball_query_multiscale_kernel<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)a.B * ((a.M + a.qb - 1) / a.qb);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  ball_query_multiscale_kernel<S><<<(unsigned)blocks, warps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // S scales (1..4): r2[s] (f32 of r*r) and ns[s] (1..1024), out[s] (B, M,
-// ns[s]) int32. Returns the CUDA error of the launch.
+// ns[s]) int32. warps, block_queries, stage_xyz and smem_bytes are the
+// wrapper's plan (`multiscale_plan`): warps 8 or 16, and a plan whose bytes
+// disagree with `ms_smem`, or over 227 KB, is refused. Returns the CUDA
+// error of the launch.
 extern "C" int or4d_ball_query_multiscale(const float* xyz, const float* new_xyz, int B, int N, int M, int S,
-                                          const float* r2, const int* ns, int* const* out, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || S < 1 || S > kMaxScales) return (int)cudaErrorInvalidValue;
-  BQArgs a{};
+                                          const float* r2, const int* ns, int* const* out, int warps,
+                                          int block_queries, int stage_xyz, long long smem_bytes, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || S < 1 || S > kMaxScales || (warps != 8 && warps != kMaxWarps) ||
+      block_queries <= 0)
+    return (int)cudaErrorInvalidValue;
+  MsArgs a{};
   a.xyz = xyz;
   a.new_xyz = new_xyz;
   a.B = B;
   a.N = N;
   a.M = M;
-  a.S = S;
+  int off = 0;
   for (int s = 0; s < S; ++s) {
     if (ns[s] < 1 || ns[s] > kMaxNs || out[s] == nullptr) return (int)cudaErrorInvalidValue;
     a.r2[s] = r2[s];
     a.ns[s] = ns[s];
+    a.list_off[s] = off;
     a.out[s] = out[s];
+    off += ns[s];
   }
-  const long long blocks = ((long long)B * M + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ball_query_multiscale_kernel<<<(unsigned)blocks, kWarps * 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const size_t warp_bytes = ms_warp_bytes(ns, S);
+  const size_t smem = ms_smem(warps, warp_bytes, N, stage_xyz != 0);
+  if (smem != (size_t)smem_bytes || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.warp_ints = (int)(warp_bytes / 4);
+  a.qb = block_queries;
+  a.stage_xyz = stage_xyz ? 1 : 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 1: return (int)launch<1>(a, warps, smem, st);
+    case 2: return (int)launch<2>(a, warps, smem, st);
+    case 3: return (int)launch<3>(a, warps, smem, st);
+    default: return (int)launch<4>(a, warps, smem, st);
+  }
 }

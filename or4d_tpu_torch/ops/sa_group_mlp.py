@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from or4d_tpu_torch.ops._card import MAX_SMEM, align16
 from or4d_tpu_torch.ops.ball_query import ball_query_with_counts
 
 # kernel launches, per mode: "raw" (A rows from raw·W0) and "plane"; and
@@ -47,7 +48,6 @@ BODY_LAUNCHES = {"mma": 0, "fp32": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_C0, _MAX_C1, _MAX_C2, _MAX_NS = 16, 128, 256, 128
 _PLAIN_ELEMS = 1 << 26  # bound on the plain version's per-chunk temporaries
-MAX_SMEM = 232448  # 227 KB: the dynamic shared memory one block can have on an H100
 _MMA_WARPS, _MMA_ROWS, _MMA_BLOCK_QUERIES = 16, 16, 256
 _FP32_WARPS, _FP32_BLOCK_QUERIES = 8, 32
 
@@ -75,10 +75,6 @@ class TilePlan:
     smem_bytes: int
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -90,10 +86,10 @@ def _mma_smem_bytes(N, ns, craw, C1, C2, halves, raw, stage_xyz, stage_plane) ->
     staged xyz and A plane."""
     C1p, C2p = _round_up(C1, 16), _round_up(C2, 8)
     KT = -(-craw // 16) if raw else 0
-    per_warp = _align16(ns * 4) + _align16(C1p * 4) + _align16(halves * C2p * 4)
-    return (_align16(C2p * (C1p + 8) * 2) + (_align16(halves * C1p * (KT * 16 + 8) * 2) if raw else 0)
-            + _align16((2 * C1p + 2 * C2p) * 4) + _MMA_WARPS * per_warp + 16
-            + (_align16(N * 12) if stage_xyz else 0) + (_align16(N * C1 * 2) if stage_plane else 0))
+    per_warp = align16(ns * 4) + align16(C1p * 4) + align16(halves * C2p * 4)
+    return (align16(C2p * (C1p + 8) * 2) + (align16(halves * C1p * (KT * 16 + 8) * 2) if raw else 0)
+            + align16((2 * C1p + 2 * C2p) * 4) + _MMA_WARPS * per_warp + 16
+            + (align16(N * 12) if stage_xyz else 0) + (align16(N * C1 * 2) if stage_plane else 0))
 
 
 def tile_plan(N: int, ns: int, C0: int, C1: int, C2: int, paired: bool, raw: bool, dtype) -> TilePlan:
@@ -113,7 +109,7 @@ def tile_plan(N: int, ns: int, C0: int, C1: int, C2: int, paired: bool, raw: boo
         raise ValueError("paired mode is a raw-mode option")
     halves = 2 if paired else 1
     if dtype == torch.float32:
-        smem = (_align16(4 * C1 * C2) + (_align16(4 * C0 * C1) if raw else 0) + _align16(4 * 2 * C2)
+        smem = (align16(4 * C1 * C2) + (align16(4 * C0 * C1) if raw else 0) + align16(4 * 2 * C2)
                 + _FP32_WARPS * (_MAX_NS + _MAX_C1) * 4)
         plan = TilePlan("fp32", 1, 1, ns * halves, _FP32_BLOCK_QUERIES, False, False, smem)
     else:

@@ -27,7 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
-from or4d_tpu_torch.ops.sa_group_mlp import _align16, _round_up
+from or4d_tpu_torch.ops._card import align16
+from or4d_tpu_torch.ops.sa_group_mlp import _round_up
 
 # kernel launches (one per SA1 scale)
 LAUNCHES = {"mlp": 0}
@@ -65,14 +66,14 @@ def serving_plan(ns: int, C0: int, C1: int, C2: int, dtype) -> ServingPlan:
         raise ValueError(f"serving_sa1_mlp kernel limits: C0<={C0P}, C1<={_MAX_C1}, C2<={_MAX_C2}, ns<={_MAX_NS}; "
                          f"got C0={C0}, C1={C1}, C2={C2}, ns={ns}")
     if dtype == torch.float32:
-        smem = (_align16(4 * C1 * C2) + _align16(4 * C0 * C1) + _align16(4 * 2 * C1) + _align16(4 * 2 * C2)
-                + _FP32_WARPS * (_align16(4 * ns * C0P) + 4 * C1 * _GROUP))
+        smem = (align16(4 * C1 * C2) + align16(4 * C0 * C1) + align16(4 * 2 * C1) + align16(4 * 2 * C2)
+                + _FP32_WARPS * (align16(4 * ns * C0P) + 4 * C1 * _GROUP))
         return ServingPlan("fp32", -(-ns // _GROUP), 1, smem)
     # the staged weights (W1^T and the W0 pair with rows padded by 8 bf16, the
     # affines), then per warp two Bq rows and two running-max rows
     C1p, C2p = _round_up(C1, 16), _round_up(C2, 8)
-    smem = (_align16(C2p * (C1p + 8) * 2) + _align16(C1p * (16 + 8) * 2) + _align16((2 * C1p + 2 * C2p) * 4)
-            + _MMA_WARPS * (_align16(2 * C1p * 4) + _align16(2 * C2p * 4)))
+    smem = (align16(C2p * (C1p + 8) * 2) + align16(C1p * (16 + 8) * 2) + align16((2 * C1p + 2 * C2p) * 4)
+            + _MMA_WARPS * (align16(2 * C1p * 4) + align16(2 * C2p * 4)))
     tiles = -(-ns // 16)
     return ServingPlan("mma", tiles, 2 if tiles == 1 else 1, smem)
 

@@ -20,6 +20,7 @@ def test_sources_that_share_the_tile_header_name_it():
     assert includes("sa_group_mlp") == ["ball_search.cuh", "sa_mma_tile.cuh"]
     assert includes("serving_sa1_mlp") == ["sa_mma_tile.cuh"]
     assert includes("ball_query_group") == ["ball_search.cuh"]
+    assert includes("ball_query_multiscale") == ["ball_search.cuh"]
     assert includes("fps") == []
 
 
@@ -41,7 +42,7 @@ def test_a_changed_search_header_rebuilds_both_sources_that_search(tmp_path, mon
     header = csrc / "ball_search.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     changed = {n for n in _build.SOURCES if before[n] != _build._lib_path(n)}
-    assert changed == {"sa_group_mlp", "ball_query_group"}
+    assert changed == {"sa_group_mlp", "ball_query_group", "ball_query_multiscale"}
 
 
 def test_a_changed_source_or_flag_changes_the_library_name(tmp_path, monkeypatch):

@@ -7,6 +7,8 @@ has PyTorch and no JAX:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from or4d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample
                                     furthest_point_sample_with_bounds_plain, furthest_point_sample_with_counts)
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
 from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
+from or4d_tpu_torch.ops import ball_query_multiscale as bqm
 from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale, ball_query_multiscale_plain
 from or4d_tpu_torch.ops.serving_sa1_mlp import serving_sa1_mlp, serving_sa1_mlp_plain
 
@@ -277,10 +280,9 @@ def test_group_wrappers_raise_on_bad_inputs(card):
         bqgr.group_raw_fwd(xyz, q, 0.3, 8, torch.randn(6, 160, device=card), raw)
     with pytest.raises(ValueError):  # idx of the wrong dtype
         bqg.group_bwd(torch.zeros(2, 32, 8, dtype=torch.int64, device=card), torch.randn(2, 32, 8, 16, device=card), 300)
-    assert bqg.bwd_smem_bytes(8000, 1024, 64) > bqg._MAX_BWD_SMEM
-    with pytest.raises(ValueError):  # one cloud's lists do not fit in shared memory
-        bqg.group_bwd(torch.zeros(1, 1024, 64, dtype=torch.int32, device=card),
-                      torch.randn(1, 1024, 64, 16, device=card), 8000)
+    with pytest.raises(ValueError):  # one cloud's counts (4 * N bytes) do not fit in shared memory
+        bqg.group_bwd(torch.zeros(1, 64, 8, dtype=torch.int32, device=card),
+                      torch.randn(1, 64, 8, 16, device=card), 60000)
 
 
 # row 5 at the S=8 train step's widths: relation crops (N 8000, C0 7) and
@@ -382,7 +384,8 @@ def _search_pair_library(tmp_path):
 @pytest.mark.parametrize("N", [8000, 1101])
 def test_both_scan_order_searches_select_the_same_hits(card, tmp_path, N):
     """ball_search.cuh holds two searches with one selection: ``search``
-    (rows 3 and 4) and ``search_x4`` (rows 5, 6 and 9). On the same clouds
+    (rows 3 and 4) and ``search_x4`` (rows 5, 6 and 9; the one-scale
+    instance of row 8's ``search_multi_x4``). On the same clouds
     and queries they give the same hit lists and, where a query has fewer
     hits than nsample, the same count: with and without a scan limit, with
     the 16-byte loads (N 8000; N 1101 leaves odd clouds unaligned and a
@@ -410,6 +413,55 @@ def test_both_scan_order_searches_select_the_same_hits(card, tmp_path, N):
                 torch.testing.assert_close(ib, ia, rtol=0, atol=0)
                 seen |= {k for k, m in (("none", ca == 0), ("few", (ca > 0) & (ca < ns)), ("full", ca >= ns))
                          if m.any()}
+    assert seen == {"none", "few", "full"}
+
+
+def _search_multi_library(tmp_path):
+    """``or4d_search_multi`` of tests/csrc/ball_search_pair.cu."""
+    import ctypes
+
+    _search_pair_library(tmp_path)  # builds the library
+    fn = ctypes.CDLL(str(tmp_path / "libball_search_pair.so")).or4d_search_multi
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, I, I, I, I, P, P, I, P, P, P, P, P]
+    fn.restype = I
+    return fn
+
+
+@pytest.mark.parametrize("N,scales", [(8000, ((0.1, 16), (0.2, 32))), (8000, ((0.4, 64), (0.1, 16), (0.2, 32))),
+                                      (1101, ((0.2, 32), (0.05, 4), (0.4, 64), (0.1, 1))), (1101, ((0.3, 40),))],
+                         ids=["sa1", "three_descending_first", "four_unordered_ragged", "one_scale_ragged"])
+def test_multiscale_search_selects_each_scales_hits_as_search_x4(card, tmp_path, N, scales):
+    """``search_multi_x4`` (row 8: every scale at once, one vote over the
+    union of the open scales' hits) against its one-scale instance
+    ``search_x4`` once per scale on the same queries: the same hit list and, where a query has fewer hits
+    than nsample, the same count, for radii in any order, with the 16-byte
+    loads and without (N 1101: odd clouds unaligned, a ragged tail)."""
+    import ctypes
+
+    from or4d_tpu_torch.ops.ball_query_group import r2_of
+
+    fn = _search_multi_library(tmp_path)
+    B, M = 6, 256
+    xyz, q, _A = _group_inputs(N + len(scales), B, N, M, 1, torch.float32)
+    xyz, q = xyz.to(card), q.to(card)
+    S = len(scales)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    seen = set()
+    for vec in (1, 0):
+        new = lambda shape: torch.full(shape, -1, dtype=torch.int32, device=card)
+        im, ix = ([new((B * M, ns)) for _r, ns in scales] for _ in range(2))
+        cm, cx = ([new((B * M,)) for _ in scales] for _ in range(2))
+        ptrs = lambda ts: (ctypes.c_void_p * S)(*[t.data_ptr() for t in ts])
+        assert fn(xyz.data_ptr(), q.data_ptr(), B, N, M, S, (ctypes.c_float * S)(*[r2_of(r) for r, _ns in scales]),
+                  (ctypes.c_int * S)(*[ns for _r, ns in scales]), vec, ptrs(im), ptrs(cm), ptrs(ix), ptrs(cx),
+                  stream) == 0
+        torch.cuda.synchronize()
+        for (_r, ns), a, b, ca, cb in zip(scales, im, ix, cm, cx):
+            torch.testing.assert_close(ca.clamp(max=ns), cb.clamp(max=ns), rtol=0, atol=0)
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+            seen |= {k for k, m in (("none", cb == 0), ("few", (cb > 0) & (cb < ns)), ("full", cb >= ns))
+                     if m.any()}
     assert seen == {"none", "few", "full"}
 
 
@@ -546,6 +598,97 @@ def test_multiscale_ball_query_kernel_exact(card, N, scales):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
         assert not g[1, 5].any()
+
+
+# row 8's layouts: scales in any order and 1 to 4 of them, ns 1 and 1024 (8
+# warps a block), a cloud too large to stage, a cloud not a multiple of 4 or
+# 128 points (unaligned clouds, a ragged tail); every case has a query with
+# no hit
+MULTISCALE_CASES = {
+    "three_descending": (8000, ((0.4, 64), (0.2, 32), (0.1, 16))),
+    "four_unordered": (4000, ((0.2, 32), (0.05, 4), (0.4, 64), (0.1, 16))),
+    "one_scale_ns1": (8000, ((0.1, 1),)),
+    "ns1024": (8000, ((0.8, 1024),)),
+    "four_scales_ns1024": (1101, ((0.8, 1024), (0.1, 16), (0.4, 1024), (0.2, 1024))),
+    "unstaged_N20000": (20000, ((0.1, 16), (0.2, 32))),
+    "N1101": (1101, ((0.1, 16), (0.2, 32))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MULTISCALE_CASES))
+def test_multiscale_kernel_layouts_bit_exact(card, case):
+    N, scales = MULTISCALE_CASES[case]
+    xyz = _cloud(N + len(scales), 3, N).to(card)
+    q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(N))[:512]].contiguous()
+    q[1, 5] = 40.0  # no hit: index 0 in every slot
+    plan = bqm.multiscale_plan(3, N, 512, scales)
+    assert plan.stage_xyz == (case != "unstaged_N20000")
+    assert plan.warps == (8 if case == "four_scales_ns1024" else 16)
+    want = ball_query_multiscale_plain(scales, xyz, q)
+    reset_launch_counts()
+    got = ball_query_multiscale(scales, xyz, q)
+    assert launch_counts()["ball_query.multiscale"] == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert not g[1, 5].any()
+
+
+def test_multiscale_and_plane_backward_raise_when_a_plan_is_refused(card, monkeypatch):
+    """A plan over the shared-memory budget raises before any launch, and a
+    plan whose bytes disagree with the kernel's own is refused by the
+    launch; nothing falls back to a plain version."""
+    xyz, q, A = (t.to(card) for t in _group_inputs(5, 2, 4000, 128, 64, torch.float32))
+    _out, idx = bqg.group_fwd(xyz, q, 0.2, 32, A)
+    g = torch.randn(_out.shape, device=card)
+    reset_launch_counts()
+    monkeypatch.setattr(bqm, "MAX_SMEM", 1000)
+    with pytest.raises(ValueError):
+        ball_query_multiscale(((0.1, 16), (0.2, 32)), xyz, q)
+    monkeypatch.setattr(bqg, "MAX_SMEM", 1000)
+    with pytest.raises(ValueError):
+        bqg.group_bwd(idx, g, 4000)
+    assert all(v == 0 for v in launch_counts().values())
+    monkeypatch.undo()
+    plan = bqm.multiscale_plan(2, 4000, 128, ((0.1, 16),))
+    monkeypatch.setattr(bqm, "multiscale_plan", lambda *a: dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16))
+    with pytest.raises(RuntimeError):
+        ball_query_multiscale(((0.1, 16),), xyz, q)
+    bplan = bqg.bwd_plan(2, 4000, 128, 32, 64)
+    monkeypatch.setattr(bqg, "bwd_plan", lambda *a: dataclasses.replace(bplan, sum_blocks=bplan.sum_blocks + 1))
+    with pytest.raises(RuntimeError):
+        bqg.group_bwd(idx, g, 4000)
+    assert all(v == 0 for v in launch_counts().values())
+
+
+# the plane backward (rows 6 and 9) at the S=8 step's widths: SA1's relation
+# and object calls and SA2's relation call, queries from FPS as on the path
+PLANE_BWD_FULL = {"sa1_relations": (640, 8000, 512, 32, 64, 0.2), "sa1_objects": (96, 4000, 512, 16, 64, 0.1),
+                  "sa2_relations": (640, 512, 128, 64, 128, 0.4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PLANE_BWD_FULL))
+def test_plane_backward_at_step_widths_deterministic(card, case, dtype):
+    B, N, M, ns, C, r = PLANE_BWD_FULL[case]
+    xyz = _cloud(N + ns, B, N).to(card)
+    q = torch.gather(xyz, 1, furthest_point_sample(xyz, M).long()[..., None].expand(-1, -1, 3)).contiguous()
+    q[0, 5] = 40.0  # no hit: passes nothing
+    gen = torch.Generator().manual_seed(N + ns)
+    A = torch.randn(B, N, C, generator=gen).to(dtype).to(card)
+    _out, idx = bqg.group_fwd(xyz, q, r, ns, A)
+    del _out
+    g = torch.randn(B, M, ns, C, generator=gen).to(dtype).to(card)
+    reset_launch_counts()
+    dA = bqg.group_bwd(idx, g, N)
+    assert launch_counts()["group.bwd"] == 1
+    torch.testing.assert_close(bqg.group_bwd(idx, g, N), dA, rtol=0, atol=0)  # bit-identical
+    _close_bwd(dA, bqg.group_bwd_plain(idx, g, N), "dA")
+    # each point's rows summed in flattened slot order, as the CPU's sequential scatter does
+    torch.testing.assert_close(dA.cpu(), bqg.group_bwd_plain(idx.cpu(), g.cpu(), N), rtol=0, atol=0)
+    hits = torch.bincount((torch.arange(B, device=card)[:, None, None] * N + idx.long())[idx >= 0], minlength=B * N)
+    if case == "sa2_relations":
+        assert int(hits.max()) > 32  # lists longer than a warp
+    assert (idx[0, 5] == -1).all() and (hits == 0).any()  # points on no list get zero rows
 
 
 def _serving_inputs(seed, R, M, ns, C0, C1, C2, dtype):

@@ -282,3 +282,146 @@ def test_row5_matches_pallas_vjp_on_no_hit_and_filled_queries(case, C0, dtype):
     dw = np.asarray(dw.astype(jnp.float32))
     rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
     np.testing.assert_allclose(W.grad.float().numpy(), dw, rtol=rtol, atol=1e-4 * float(np.abs(dw).max()))
+
+
+# the plane backward (rows 6 and 9): (B, N, M, ns, C) of the S=8 step's calls
+# -> (placing warps, runs of 32 entries a cloud, sum blocks, the CSR
+# build's shared-memory bytes)
+PLANE_BWD_MAIN_PATH = {
+    "row9_relations_ns32": ((640, 8000, 512, 32, 64), (1, 512, 640 * 512 // 8, 32000)),
+    "row9_relations_ns16": ((640, 8000, 512, 16, 64), (1, 256, 640 * 256 // 8, 32000)),
+    "row9_objects_ns32": ((96, 4000, 512, 32, 64), (8, 512, 96 * 512 // 8, 128000)),
+    "row6_relations_ns64": ((640, 512, 128, 64, 128), (8, 256, 640 * 256 // 8, 16384)),
+    "row6_objects_ns32": ((96, 512, 128, 32, 128), (8, 128, 96 * 128 // 8, 16384)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANE_BWD_MAIN_PATH))
+def test_plane_backward_plan_at_main_path_shapes(case):
+    shape, want = PLANE_BWD_MAIN_PATH[case]
+    plan = bqg.bwd_plan(*shape)
+    assert (plan.segs, plan.runs, plan.sum_blocks, plan.build_smem_bytes) == want
+    B, N, M, ns, _C = shape
+    # the runs cover the cloud's M * ns slots, the blocks of 8 warps every run once
+    assert (plan.runs - 1) * 32 < M * ns <= plan.runs * 32
+    assert (plan.sum_blocks - 1) * 8 < B * plan.runs <= plan.sum_blocks * 8
+    assert plan.build_smem_bytes == 4 * N * plan.segs  # N a multiple of 4 here
+
+
+def test_plane_backward_plan_splits_a_cloud_only_for_few_clouds():
+    """640 relation crops run 640 builds side by side, one placing warp
+    each; 96 object crops fill the card only with each cloud's slots split
+    over 8 placing warps (and 8 counts a point: 128 KB at 4000 points)."""
+    assert bqg.bwd_plan(640, 8000, 512, 32, 64).segs == 1
+    assert bqg.bwd_plan(96, 4000, 512, 32, 64).segs == 8
+    assert bqg.bwd_plan(96, 8000, 512, 32, 64).segs == 4  # 8 counts a point would pass 227 KB
+    # on 8 SMs: two waves of 48 clouds with one placing warp or with two (7
+    # blocks of 32 KB an SM), and two halve each cloud's walk
+    assert bqg.bwd_plan(96, 4000, 512, 32, 64, sms=8).segs == 2
+
+
+@pytest.mark.parametrize("shape", [(8, 4000, 512, 128, 64), (8, 4000, 512, 32, 257), (8, 58105, 512, 32, 64),
+                                   (0, 4000, 512, 32, 64)])
+def test_plane_backward_plan_refuses_shapes_outside_the_limits(shape):
+    """nsample over 127 or C over 256, or a cloud whose counts (4 bytes a
+    point) and the build's 32 static bytes pass 227 KB of shared memory;
+    58104 points still fit."""
+    assert bqg.bwd_plan(8, 58104, 512, 32, 64).build_smem_bytes + 32 == MAX_SMEM
+    with pytest.raises(ValueError):
+        bqg.bwd_plan(*shape)
+
+
+def test_plane_backward_constants_match_the_kernel_source():
+    """The sum's warps a block and the CSR build's threads and bytes (4 a
+    point and placing warp, 16-byte aligned) are the source's own; the
+    launch refuses a plan whose runs, blocks or bytes disagree."""
+    src = (Path(bqg.__file__).parent / "csrc" / "ball_query_group.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr (?:int|size_t) (k\w+) = (\d+);", src)}
+    assert (const["kBwdSumWarps"], const["kBwdRun"], const["kMaxC"]) == (bqg._BWD_SUM_WARPS, bqg._BWD_RUN, bqg._MAX_C)
+    assert const["kBwdBuildThreads"] == 32 * 8 and const["kBwdBuildThreads"] // 32 * 4 == bqg._BWD_BUILD_STATIC
+    assert "inline size_t bwd_build_smem(int N, int segs) { return align16((size_t)N * segs * 4); }" in src
+    assert "(Mns + kBwdRun - 1) / kBwdRun != R" in src
+    assert "kBwdSumWarps - 1) / kBwdSumWarps != sum_blocks" in src
+
+
+def plane_bwd_csr(idx: torch.Tensor, N: int, segs: int = 1):
+    """A model of the CSR ``group_bwd_build`` writes for one call: per cloud
+    the slots' targets (their saved indices; -1 is none) counted per run of
+    slots and point, an exclusive scan of the points' totals into list
+    starts, each run's cursor at a point after the earlier runs' entries;
+    then each run's slots placed 32 at a time in order, lanes with the same
+    target ranked among themselves and the target's cursor advanced by
+    their count. -> (off (B, N + 1), ent (B, M * ns)) int64."""
+    B = idx.shape[0]
+    I = idx.reshape(B, -1).long()
+    Mns = I.shape[1]
+    seg_len = -(-(-(-Mns // segs)) // 32) * 32
+    off = torch.zeros(B, N + 1, dtype=torch.int64)
+    ent = torch.full((B, Mns), -1, dtype=torch.int64)
+    for b in range(B):
+        counts = torch.stack([torch.bincount(I[b, s * seg_len:(s + 1) * seg_len][I[b, s * seg_len:(s + 1) * seg_len] >= 0],
+                                             minlength=N) for s in range(segs)])
+        off[b, 1:] = torch.cumsum(counts.sum(0), 0)
+        cursors = off[b, :N] + torch.cumsum(counts, 0) - counts
+        for s in range(segs):
+            cur = cursors[s]
+            for e0 in range(s * seg_len, min(Mns, (s + 1) * seg_len), 32):
+                p = I[b, e0:min(e0 + 32, (s + 1) * seg_len)]
+                for key in p[p >= 0].unique():
+                    lanes = (p == key).nonzero()[:, 0]  # the group, in lane order
+                    ent[b, cur[key] + torch.arange(len(lanes))] = e0 + lanes
+                    cur[key] += len(lanes)
+    return off, ent
+
+
+def run_points(off: torch.Tensor, E: int = 32):
+    """The points each run of E CSR entries takes in ``group_bwd_sum``:
+    run k, the points whose lists start in [k * E, (k + 1) * E) (``rfirst``
+    of the build), the last run also those after it. -> per cloud, per run,
+    a range of points."""
+    B, N1 = off.shape
+    Mns = int(off[:, -1].max()) if off.numel() else 0
+    R = max(1, -(-Mns // E))
+    out = []
+    for b in range(B):
+        first = [int(torch.searchsorted(off[b, :-1], k * E)) for k in range(R)]  # first point with start >= k * E
+        out.append([range(first[k], first[k + 1] if k + 1 < R else N1 - 1) for k in range(R)])
+    return out
+
+
+@pytest.mark.parametrize("segs", [1, 8])
+def test_plane_backward_csr_order_is_the_flattened_slot_order(segs):
+    """The CSR's lists, in place order, are exactly the slots
+    ``scatter_rows`` adds to each point in its flattened-slot order (filled
+    slots to the first hit, nothing from a query with no hit), whether one
+    warp or eight place a cloud's slots; the sum's runs take every point
+    once; and each list summed in order in f32 gives the plain version bit
+    for bit."""
+    rng = np.random.default_rng(21)
+    B, N, M, ns, C = 3, 300, 40, 16, 8
+    xyz = torch.from_numpy((rng.standard_normal((B, N, 3)) * 0.4).astype(np.float32))
+    q = xyz[:, rng.permutation(N)[:M]].contiguous()
+    q[0, 2] = 40.0  # no hit
+    idx = bqg.group_indices_plain(xyz, q, 0.15, ns)
+    flat = idx.reshape(B, -1)
+    filled = (flat.view(B, M, ns)[..., 1:] == flat.view(B, M, ns)[..., :1]).any(-1)
+    assert (idx[0, 2] == -1).all() and filled.any()  # no-hit and filled queries both present
+    off, ent = plane_bwd_csr(idx, N, segs)
+    assert int(off[:, -1].sum()) == int((idx >= 0).sum())  # every slot of a query with a hit, once
+    g = torch.from_numpy(rng.standard_normal((B, M, ns, C)).astype(np.float32))
+    want = bqg.scatter_rows(idx, g, N)
+    for b in range(B):
+        for n in range(N):
+            lst = ent[b, off[b, n]:off[b, n + 1]]
+            assert lst.tolist() == (flat[b] == n).nonzero()[:, 0].tolist()
+    runs = run_points(off)
+    assert all(sorted(n for r in cloud for n in r) == list(range(N)) for cloud in runs)
+    assert any(off[b, r.stop] - off[b, r.start] > 32 for b, cloud in enumerate(runs) for r in cloud if len(r))
+    dA = torch.zeros(B, N, C)
+    rows = g.reshape(B, M * ns, C)
+    for b, cloud in enumerate(runs):
+        for r in cloud:
+            for n in r:
+                for e in ent[b, off[b, n]:off[b, n + 1]].tolist():
+                    dA[b, n] += rows[b, e]
+    torch.testing.assert_close(dA, want, rtol=0, atol=0)
