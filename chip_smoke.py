@@ -5,6 +5,7 @@ path and with ``train_raw`` false), the bounds pre-pass and serving mode
 (cached SA1 geometry) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --bounds-timing
 
 Every run drives all phases, each printing JSON lines; any failure exits
 non-zero, and nothing runs on the CPU except the CPU reference passes of the
@@ -15,7 +16,8 @@ slice and train phases.
              shared memory and spill bytes (ptxas -v), and per kernel the count
              of tensor-core instructions (HMMA) in its SASS (cuobjdump): the
              bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
-             must have them.
+             must have them. The bounds pre-pass's inner loop by opcode and
+             its instructions a query-point pair (``sass_bounds_loop``).
 3. check   — every kernel against its plain PyTorch version on the card, on
              the inputs the main path hands it (recorded from an S=8 eval
              forward, cut to 64 clouds): FPS indices and its search bounds
@@ -71,8 +73,14 @@ slice and train phases.
              at the flattened hit indices (the ``library_ms`` of rows 6 and
              9 bwd). Then the bounds pre-pass on the
              ``train_raw=False`` float32 step's full SA1 geometry (its own
-             path: counters zeroed before, read after), and its ms beside
-             its plain version and its bound.
+             path: counters zeroed before, read after), held exactly against
+             its plain version and the FPS counts at that size
+             (``check_train_full``, with the plan each call ran), and its
+             ms beside its plain version, its bound and its issue floor (the SASS
+             loop's instructions a pair over the card's issue rate at its
+             top clock); its calls split (``timing_bounds_split``): every
+             scale at once, each scale alone, the first half of the
+             queries.
 9. check_serving — the multi-scale ball query (exactly, every scale) and
              the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
              plain versions on the card, on the inputs of an S=8 bfloat16
@@ -88,7 +96,10 @@ slice and train phases.
              the cold unpaired forward at S=8 in bfloat16 within 1e-4. Then
              float32 at S=1: serving log-probs on the card and on the CPU
              within 1e-3, serving against the cold unpaired forward on the
-             card within 1e-4, and the SA1 stages' gap alone (reported).
+             card bit for bit, and every stage (``eval_stages``:
+             SA1-SA3 per encoder, the GCN's inputs and outputs, both heads)
+             of serving against cold, and of each against a second run of
+             itself, bit for bit.
 11. timing_serving — the S=64 bfloat16 serving batch: cache build host
              seconds and bytes (set-up), forward batch ms with the caches
              resident, scenes/s, peak memory and a torch.profiler breakdown;
@@ -103,6 +114,10 @@ slice and train phases.
 
 Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
 ``{"ok": true, "device": {...}}``. Weights are random, from a seed.
+
+``--bounds-timing`` runs only ``bounds_timing``: the bounds pre-pass alone
+at the train step's two SA1 call shapes, for comparing the kernel of two
+checkouts (this script copied into each) and its block shapes in one call.
 """
 
 from __future__ import annotations
@@ -167,6 +182,8 @@ SERVING_ROWS = (
      "or4d_tpu/ops/pallas_ball_query.py:139"),
 )
 SA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# launches a row-10 timing averages over (a call of 0.1-1.2 ms)
+ROW10_LAUNCHES = 100
 BWD_TOL = {"group_raw_bwd": 1e-4, "group_bwd": 1e-5, "group_gated_bwd": 1e-5}  # of the largest |value|
 
 
@@ -178,58 +195,113 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
 
-def sass_mma_counts(paths) -> dict:
-    """{source: {kernel: HMMA instructions}} from ``cuobjdump -sass`` of each
-    built library, or None where the toolkit has no cuobjdump."""
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def max_sm_clock_mhz() -> float:
+    return float(nvidia_smi("clocks.max.sm").split()[0])
+
+
+def sass_listings(paths) -> dict:
+    """{source: SASS text} from ``cuobjdump -sass`` of each built library,
+    or None where the toolkit has no cuobjdump."""
     import os
-    import re
 
     tool = shutil.which("cuobjdump") or str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     if not Path(tool).exists():
         return None
-    counts = {}
-    for name, path in paths.items():
-        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        per, fn = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                per[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                per[fn] += 1
-        counts[name] = per
-    return counts
+    return {name: subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, timeout=300,
+                                 check=True).stdout for name, path in paths.items()}
+
+
+def sass_functions(sass: str) -> dict:
+    """{kernel: [(address, opcode, text)]} of one SASS listing; a kernel is
+    named as in ``short_name``, the opcode without predicate or modifiers."""
+    import re
+
+    per, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short_name(m.group(1))
+            per[fn] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*);", line)
+        if fn is not None and m:
+            per[fn].append((int(m.group(1), 16), m.group(2), m.group(2) + m.group(3)))
+    return per
+
+
+def sass_mma_counts(sass) -> dict:
+    """{source: {kernel: HMMA instructions}}, or None without listings."""
+    if sass is None:
+        return None
+    return {name: {fn: sum(op == "HMMA" for _a, op, _t in ins) for fn, ins in sass_functions(text).items()}
+            for name, text in sass.items()}
+
+
+def sass_loop_mix(sass: str, part: str) -> dict:
+    """Per kernel whose name holds ``part``: the instruction mix of its
+    densest loop (the backward branch whose body has the most FMUL per
+    instruction), by opcode, with the pairs an iteration computes taken as
+    FMUL / 3 (each distance has three products) and instructions per pair."""
+    import re
+
+    out = {}
+    for fn, ins in sass_functions(sass).items():
+        if part not in fn:
+            continue
+        best = None
+        for addr, op, text in ins:
+            m = re.search(r"BRA\S*\s+`?\(?(0x[0-9a-f]+)", text) if op == "BRA" else None
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [o for a, o, _t in ins if int(m.group(1), 16) <= a <= addr]
+            fmul = body.count("FMUL")
+            if fmul and (best is None or fmul / len(body) > best[0]):
+                best = (fmul / len(body), body)
+        if best is None:
+            continue
+        body = best[1]
+        mix = {op: body.count(op) for op in sorted(set(body))}
+        pairs = mix["FMUL"] / 3
+        out[fn] = {"instructions": len(body), "pairs": pairs, "per_pair": len(body) / pairs, "mix": mix}
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """A kernel as "name<mangled template arguments>" from its mangled name
+    (_ZN<len><namespace><len><name>I<args>Ev<params>)."""
+    import re
+
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    n = re.match(r"(\d+)", rest)
+    if not n:
+        return mangled
+    name, tail = rest[n.end():n.end() + int(n.group(1))], rest[n.end() + int(n.group(1)):]
+    return f"{name}<{tail[:tail.index('Ev')]}>" if tail.startswith("I") and "Ev" in tail else name
 
 
 def ptxas_summary(log: str) -> dict:
     """{kernel: {"registers", "spill_bytes", "smem_bytes"}} from ptxas -v
-    output; a kernel is named as "name<mangled template arguments>"."""
+    output; a kernel is named as in ``short_name``."""
     import re
-
-    def short(mangled):  # _ZN<len><namespace><len><name>I<args>Ev<params>
-        m = re.match(r"_ZN(\d+)", mangled)
-        if not m:
-            return mangled
-        rest = mangled[m.end() + int(m.group(1)):]
-        n = re.match(r"(\d+)", rest)
-        if not n:
-            return mangled
-        name, tail = rest[n.end():n.end() + int(n.group(1))], rest[n.end() + int(n.group(1)):]
-        return f"{name}<{tail[:tail.index('Ev')]}>" if tail.startswith("I") and "Ev" in tail else name
 
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = short(m.group(1))
+            fn = short_name(m.group(1))
             out[fn] = {"registers": None, "spill_bytes": 0, "smem_bytes": 0}
             continue
         if fn is None:
@@ -685,12 +757,13 @@ def bounds_bound(xyz, new_xyz, scales) -> tuple[float, str, dict]:
     return as_bound(nbytes, pairs * (8 + 2 * len(scales)), {"pairs": pairs})
 
 
-def check_bounds(geoms, errs) -> list:
+def check_bounds(geoms, errs, phase) -> list:
     """Row 10 on recorded SA1 geometries: the kernel against its plain
     version, and against the FPS kernel rerun on the same clouds (its
     centroids must be the recorded queries): need equal to counts_to_bounds'
-    and to the recorded need, total equal to the sum of the counts."""
-    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
+    and to the recorded need, total equal to the sum of the counts. Each
+    line names the plan the call ran; a mismatch fails the run."""
+    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain, bounds_plan
     from or4d_tpu_torch.ops.fps import furthest_point_sample_with_counts
     from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
 
@@ -705,10 +778,12 @@ def check_bounds(geoms, errs) -> list:
         agree = all(torch.equal(gn, fn) and torch.equal(gt, c.sum(-1)) and torch.equal(gn.int(), rn)
                     for (gn, gt), (fn, _thr), c, rn in zip(got, counts_to_bounds(scales, counts), counts, needs))
         ok = d == 0.0 and same_q and agree
+        plan = bounds_plan(xyz.shape[0], xyz.shape[1], q.shape[1], len(scales),
+                           torch.cuda.get_device_properties(xyz.device).multi_processor_count)
         checks.append({"row": "ball_query_bounds", "shape": str((tuple(xyz.shape), q.shape[1], scales)),
-                       "max_abs_err": d, "equals_fps_counts": bool(same_q and agree), "ok": ok,
+                       "plan": vars(plan), "max_abs_err": d, "equals_fps_counts": bool(same_q and agree), "ok": ok,
                        "max_need": float(max(g[0].max() for g in got))})
-        emit({"phase": "check_train", **checks[-1]})
+        emit({"phase": phase, **checks[-1]})
         errs["ball_query_bounds"] = max(errs.get("ball_query_bounds", 0.0), d)
         if not ok:
             fail(f"ball_query_bounds disagrees with its plain version or the FPS counts: {checks[-1]}")
@@ -781,28 +856,125 @@ def time_group_calls(calls, smi, stats) -> list:
     return per_call
 
 
-def bounds_path(calls, smi, stats) -> list:
-    """Row 10's own path on the recorded step's full SA1 geometries:
-    counters zeroed before, read after; then its timings."""
-    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
-    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
+def issue_floor_ms(pairs: int, per_pair: float, sms: int, clock_mhz: float) -> float:
+    """The least time for ``pairs`` at ``per_pair`` instructions each (the
+    SASS of the kernel's inner loop), one warp instruction a clock on each
+    of the card's 4 x ``sms`` SM sub-partitions at its top clock."""
+    return 1e3 * pairs * per_pair / 32 / (4 * sms * clock_mhz * 1e6)
 
-    geoms = [(x, q, sc) for x, q, sc, _n in sa1_geometries(calls)]
+
+def bounds_path(geoms, smi, stats, sass_loop) -> list:
+    """Row 10's own path on the recorded step's full SA1 geometries
+    (``sa1_geometries``): counters zeroed before, read after; then each
+    call held against its plain version and the FPS counts at these sizes
+    (``check_bounds``, phase ``check_train_full``: the plans the full calls
+    take, which the cut calls of check_train do not all reach); then its
+    timings (ROW10_LAUNCHES launches each), beside the issue floor of the
+    inner loop that the call's plan runs (``sass_loop``)."""
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain, bounds_plan
+
     reset_launch_counts()
-    for x, q, sc in geoms:
+    for x, q, sc, _n in geoms:
         ball_query_bounds(sc, x, q)
     torch.cuda.synchronize()
     stats["launches"]["bounds.prepass"] = launch_counts()["bounds.prepass"]
+    check_bounds(geoms, stats["errs"], "check_train_full")
     per_call = []
-    for x, q, sc in geoms:
-        k_ms = cuda_ms(lambda: ball_query_bounds(sc, x, q), 3)
+    for x, q, sc, _n in geoms:
+        k_ms = cuda_ms(lambda: ball_query_bounds(sc, x, q), ROW10_LAUNCHES)
         p_ms = cuda_ms(lambda: ball_query_bounds_plain(sc, x, q), 1)
         b_ms, b_by, info = bounds_bound(x, q, sc)
         add_timing(stats, "ball_query_bounds", k_ms, p_ms, b_ms, b_by)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = bounds_plan(x.shape[0], x.shape[1], q.shape[1], len(sc), sms)
+        loop = (sass_loop or {}).get(f"bounds_kernel<ILi{len(sc)}ELi{plan.queries}EE>")
+        floor = issue_floor_ms(info["pairs"], loop["per_pair"], sms, max_sm_clock_mhz()) if loop else None
         per_call.append({"row": "ball_query_bounds", "card": smi, "shape": str((tuple(x.shape), q.shape[1], sc)),
-                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, **info})
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_share": b_ms / k_ms, "plan": vars(plan),
+                         "instructions_per_pair": loop and loop["per_pair"], "issue_floor_ms": floor, **info})
         emit({"phase": "timing_train_kernel", **per_call[-1]})
     return per_call
+
+
+def bounds_split(geoms, smi) -> list:
+    """Row 10's calls split, each timed on the recorded SA1 geometry in
+    this call: every scale at once (as the path runs it), each scale alone,
+    and every scale on the first half of the queries. A time that follows
+    the pairs and the scales, not the points staged, is held by the
+    instructions a pair."""
+    from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds
+
+    out = []
+    for x, q, sc, _n in geoms:
+        half = q[:, : q.shape[1] // 2].contiguous()
+        n = ROW10_LAUNCHES
+        entry = {"card": smi, "shape": str((tuple(x.shape), q.shape[1])), "scales": sc,
+                 "pairs": x.shape[0] * x.shape[1] * q.shape[1],
+                 "all_scales_ms": cuda_ms(lambda: ball_query_bounds(sc, x, q), n),
+                 "scale_ms": [cuda_ms(lambda: ball_query_bounds((s,), x, q), n) for s in sc],
+                 "half_queries_ms": cuda_ms(lambda: ball_query_bounds(sc, x, half), n)}
+        out.append(entry)
+        emit({"phase": "timing_bounds_split", **entry})
+    return out
+
+
+def bounds_timing(seed: int, rounds: int = 20, launches: int = 20) -> None:
+    """Row 10 alone at the S=8 ``train_raw=False`` step's two SA1 call
+    shapes (96 object clouds of 4000 points and 640 relation clouds of
+    8000, 512 FPS centroids each, scales (0.1, 16) and (0.2, 32)), on
+    Gaussian clouds made from ``seed`` (the kernel's work does not depend on
+    the points: every pair is counted): the plan as it stands and, where
+    the package plans its calls (``bounds_plan``), the same plan at 1, 2
+    and 4 queries a thread. Each is first held bit for bit against the
+    plain version, then timed in ``rounds`` rounds of ``launches`` launches
+    (CUDA events), the shapes in turn within a round; per shape the median,
+    least and most of its rounds' ms a launch. The package is the one
+    beside this script, so a copy of it in another checkout times that
+    checkout's kernel."""
+    import dataclasses
+    import statistics
+
+    from or4d_tpu_torch.ops import ball_query_bounds as bqb
+    from or4d_tpu_torch.ops.fps import furthest_point_sample
+
+    smi = nvidia_smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scales = ((0.1, 16), (0.2, 32))
+    planned = getattr(bqb, "bounds_plan", None)
+    for B, N in ((96, 4000), (640, 8000)):
+        x = torch.randn(B, N, 3, device="cuda", generator=gen) * 0.5
+        q = torch.gather(x, 1, furthest_point_sample(x, 512).long()[..., None].expand(-1, -1, 3)).contiguous()
+        want = bqb.ball_query_bounds_plain(scales, x, q)
+        shapes = {"planned": None}
+        if planned is not None:
+            base = planned(B, N, 512, len(scales), torch.cuda.get_device_properties(0).multi_processor_count)
+            for k in (1, 2, 4):
+                bq = bqb.THREADS * k
+                shapes[f"queries_{k}"] = dataclasses.replace(base, queries=k, block_queries=bq,
+                                                             blocks=B * -(-512 // bq))
+            shapes["planned"] = base
+        ms = {name: [] for name in shapes}
+        try:
+            for name, plan in shapes.items():
+                if plan is not None:
+                    bqb.bounds_plan = lambda *a, plan=plan: plan
+                got = bqb.ball_query_bounds(scales, x, q)
+                if not all(torch.equal(g, w) for gw, ww in zip(got, want) for g, w in zip(gw, ww)):
+                    fail(f"ball_query_bounds ({name}, {plan}) disagrees with its plain version at {(B, N)}")
+            for _ in range(rounds):
+                for name, plan in shapes.items():
+                    if plan is not None:
+                        bqb.bounds_plan = lambda *a, plan=plan: plan
+                    ms[name].append(cuda_ms(lambda: bqb.ball_query_bounds(scales, x, q), launches))
+        finally:
+            if planned is not None:
+                bqb.bounds_plan = planned
+        for name, plan in shapes.items():
+            emit({"phase": "bounds_timing", "card": smi, "shape": str(((B, N, 3), 512, scales)), "shape_of": name,
+                  "plan": plan and vars(plan), "median_ms": statistics.median(ms[name]), "min_ms": min(ms[name]),
+                  "max_ms": max(ms[name]), "rounds": rounds, "launches": launches})
 
 
 def train_phases(args, rec, smi, results, stats) -> None:
@@ -849,7 +1021,7 @@ def train_phases(args, rec, smi, results, stats) -> None:
         del tr
         checks += check_group_calls(calls, errs)
         if not train_raw:
-            checks += check_bounds(sa1_geometries(calls), errs)
+            checks += check_bounds(sa1_geometries(calls), errs, "check_train")
         del calls
     results["check_train"] = checks
 
@@ -968,7 +1140,10 @@ def train_phases(args, rec, smi, results, stats) -> None:
             if train_raw:
                 results["timing_group_split"] = group_split(timed_calls, smi)
             else:
-                per_call += bounds_path(timed_calls, smi, stats)
+                geoms = sa1_geometries(timed_calls)
+                per_call += bounds_path(geoms, smi, stats, results["build"]["sass_bounds_loop"])
+                results["timing_bounds_split"] = bounds_split(geoms, smi)
+                del geoms
             timed_calls = None
             gc.collect()
             torch.cuda.empty_cache()
@@ -1081,6 +1256,35 @@ def sa1_serving_vs_cold(model, batch, pack) -> dict:
             out[f"{key}_scale{si}"] = max_abs_diff(served[..., c0:c0 + c2], cold[..., c0:c0 + c2]) if same_q else \
                 float("inf")
             c0 += c2
+    return out
+
+
+def eval_stages(model, batch, pack=None, sa1_caches=None) -> dict:
+    """One eval forward of an SGPN (cold, or serving with ``sa1_caches``),
+    its outputs stage by stage: per encoder ("obj", "rel") SA1's centroids
+    and features and SA2's and SA3's features; the GCN's node and edge
+    inputs and outputs; both heads' log-probs (forward hooks)."""
+    out, hooks = {}, []
+
+    def keep(name, pick):
+        return lambda _m, args, res: out.__setitem__(name, pick(args, res).detach())
+
+    for key, enc in (("obj", model.obj_encoder), ("rel", model.rel_encoder)):
+        hooks += [enc.sa1.register_forward_hook(keep(f"{key}_sa1_xyz", lambda a, r: r[0])),
+                  enc.sa1.register_forward_hook(keep(f"{key}_sa1", lambda a, r: r[1])),
+                  enc.sa2.register_forward_hook(keep(f"{key}_sa2", lambda a, r: r[1])),
+                  enc.sa3.register_forward_hook(keep(f"{key}_sa3", lambda a, r: r))]
+    for i, part in enumerate(("obj", "rel")):
+        hooks += [model.gcn.register_forward_hook(keep(f"gcn_in_{part}", lambda a, r, i=i: a[i])),
+                  model.gcn.register_forward_hook(keep(f"gcn_out_{part}", lambda a, r, i=i: r[i]))]
+    hooks += [model.obj_predictor.register_forward_hook(keep("obj_head", lambda a, r: r)),
+              model.rel_predictor.register_forward_hook(keep("rel_head", lambda a, r: r))]
+    try:
+        with torch.no_grad():
+            model(batch, pack, sa1_caches=sa1_caches)
+    finally:
+        for h in hooks:
+            h.remove()
     return out
 
 
@@ -1221,20 +1425,32 @@ def serving_phases(args, rec, smi, results, stats) -> None:
     d_obj = float((out_gpu.obj_logprobs.cpu()[om] - out_cpu.obj_logprobs[om]).abs().max())
     d_cold = max(float((out_gpu.rel_logprobs - cold.rel_logprobs).abs().max()),
                  float((out_gpu.obj_logprobs - cold.obj_logprobs).abs().max()))
-    # where the float32 gap arises: the SA1 stages alone, on the same crops
-    sa1_f32 = sa1_serving_vs_cold(m_gpu, b1.to("cuda"), pack1.to("cuda"))
+    # stage by stage, each path also against a second run of itself: every
+    # stage runs in one order on every run, so all bit-equal
+    pk1 = pack1.to("cuda")
+    caches1 = serving.build_sgpn_sa1_caches(m_gpu, b1.to("cuda"), pk1)
+    served_st = [eval_stages(m_gpu, strip(b1), pk1, caches1) for _ in range(2)]
+    cold_st = [eval_stages(m_gpu, b1.to("cuda"), pk1) for _ in range(2)]
+    stages = {"serving_vs_cold": {k: max_abs_diff(v, cold_st[0][k]) for k, v in served_st[0].items()},
+              "cold_vs_cold": {k: max_abs_diff(v, cold_st[0][k]) for k, v in cold_st[1].items()},
+              "serving_vs_serving": {k: max_abs_diff(v, served_st[0][k]) for k, v in served_st[1].items()}}
+    del caches1, served_st, cold_st
     finite = bool(torch.isfinite(out_gpu.rel_logprobs).all() and torch.isfinite(out_gpu.obj_logprobs).all())
     srv = {"scenes": 8, "dtype": "bfloat16", "macro_f1": f1, "macro_f1_from_cache_files": f1_loaded,
            "cache_files": files, "seconds": serve_s, "launches": launches,
            "launches_loading_cache": loaded_launches, "bf16_s8_serving_vs_cold_max_abs_diff": d_bf16,
            "f32_s1_rel_max_abs_diff": d_rel, "f32_s1_obj_max_abs_diff": d_obj,
-           "f32_s1_serving_vs_cold_max_abs_diff": d_cold, "f32_s1_sa1_serving_vs_cold_max_abs_diff": sa1_f32,
+           "f32_s1_serving_vs_cold_max_abs_diff": d_cold,
+           "f32_s1_stages_max_abs_diff": stages,
            "cpu_reference_seconds": cpu_s, "finite": finite}
     results["serving"] = srv
     emit({"phase": "serving", **srv})
     if not finite or d_rel > 1e-3 or d_obj > 1e-3 or d_cold > 1e-4 or d_bf16 > 1e-4:
         fail(f"serving differs: S=1 float32 card vs CPU rel {d_rel} obj {d_obj}, vs cold {d_cold}; "
              f"S=8 bfloat16 vs cold {d_bf16}")
+    parted = {f"{pair}: {k}": d for pair, per in stages.items() for k, d in per.items() if d != 0.0}
+    if d_cold != 0.0 or parted:
+        fail(f"S=1 float32 forwards part (serving vs cold {d_cold}): {parted}")
     del m_gpu, m_cpu, out_gpu, out_cpu, cold
 
     # timing_serving: the S=64 bf16 batch, caches resident
@@ -1330,10 +1546,14 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
     ap.add_argument("--scenes", type=int, default=64, help="timing batch (bench.py default 64)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bounds-timing", action="store_true", help="time the bounds pre-pass alone (bounds_timing)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
         return 1
+    if args.bounds_timing:
+        bounds_timing(args.seed)
+        return 0
     from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
     from or4d_tpu_torch.infer import predict_relations
     from or4d_tpu_torch.models import SGPN
@@ -1353,9 +1573,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     ptxas = {n: ptxas_summary(_build.build_log.get(n, "")) for n in paths}
-    hmma = sass_mma_counts(paths)
+    sass = sass_listings(paths)
+    hmma = sass_mma_counts(sass)
+    # row 10's inner loop, instruction by instruction (its time is issue-bound)
+    bounds_loop = sass_loop_mix(sass["ball_query_bounds"], "bounds") if sass is not None else None
     results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
-                        "ptxas": ptxas, "sass_hmma": hmma}
+                        "ptxas": ptxas, "sass_hmma": hmma, "sass_bounds_loop": bounds_loop}
     emit({"phase": "build", **results["build"]})
     # the bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
     for src, kern in (("sa_group_mlp", "sa_mma_kernel"), ("serving_sa1_mlp", "serving_mma_kernel")):

@@ -7,8 +7,10 @@ node of each edge; nn2 updates the nodes, e' replaces the edge features;
 ReLU between layers. All BN uses masked batch statistics
 (track_running_stats=False), pooled over every valid edge/node of the batch.
 
-The JAX package runs the per-scene scatter under vmap; here it is one flat
-``index_add_`` over scene*O + dst.
+The JAX package runs the per-scene scatter under vmap; here it is a batched
+product with the one-hot of the targets, whose summation order is fixed
+(``index_add_`` on the card adds in the order its atomics land, so two runs
+of the same forward differed by ~1e-6).
 """
 
 from __future__ import annotations
@@ -40,10 +42,11 @@ class TripletGCNLayer(nn.Module):
         H, De = self.dim_hidden, self.dim_edge
         dx_i, new_e, dx_j = h[..., :H], h[..., H : H + De], h[..., H + De :]
         msg = (dx_i + dx_j) * edge_mask[..., None].to(h.dtype)
-        flat_dst = (torch.arange(S, device=x.device)[:, None] * O + dst).reshape(-1)
-        agg = torch.zeros(S * O, H, dtype=msg.dtype, device=x.device)
-        agg.index_add_(0, flat_dst, msg.reshape(S * E, H))
-        new_x = self.nn2(agg.view(S, O, H), obj_mask)
+        # each node's messages summed as the product with the (S, O, E)
+        # one-hot of the targets: one summation order on every run and
+        # device (index_add_ on the card sums in the order its atomics land)
+        agg = torch.bmm(nn.functional.one_hot(dst, O).transpose(1, 2).to(msg.dtype), msg)
+        new_x = self.nn2(agg, obj_mask)
         return new_x, new_e
 
 

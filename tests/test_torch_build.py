@@ -42,7 +42,8 @@ def test_a_changed_search_header_rebuilds_both_sources_that_search(tmp_path, mon
     header = csrc / "ball_search.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     changed = {n for n in _build.SOURCES if before[n] != _build._lib_path(n)}
-    assert changed == {"sa_group_mlp", "ball_query_group", "ball_query_multiscale"}
+    # every source that searches or stages a cloud through the header
+    assert changed == {"sa_group_mlp", "ball_query_group", "ball_query_multiscale", "ball_query_bounds"}
 
 
 def test_a_changed_source_or_flag_changes_the_library_name(tmp_path, monkeypatch):

@@ -18,6 +18,7 @@ from or4d_tpu_torch.ops import ball_query_group as bqg, ball_query_group_raw as 
 from or4d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample_with_bounds,
                                     furthest_point_sample_with_bounds_plain, furthest_point_sample_with_counts)
 from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds, sa_group_mlp
+from or4d_tpu_torch.ops import ball_query_bounds as bqb
 from or4d_tpu_torch.ops.ball_query_bounds import ball_query_bounds, ball_query_bounds_plain
 from or4d_tpu_torch.ops import ball_query_multiscale as bqm
 from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale, ball_query_multiscale_plain
@@ -561,23 +562,88 @@ def test_plane_backward_on_wide_supports_matches_plain(card, case):
         torch.testing.assert_close(bqg.group_bwd(idx, g, N), dA, rtol=0, atol=0)  # deterministic
 
 
-@pytest.mark.parametrize("N", [1100, 4000, 8000])
-def test_bounds_kernel_exact(card, N):
-    xyz, q, counts = _sa1_geometry(N + 3, 3, N, card)
-    reset_launch_counts()
-    got = ball_query_bounds(SA1_SCALES, xyz, q)
-    assert launch_counts()["bounds.prepass"] == 1
-    for (gn, gt), (need, _thr), c in zip(got, counts_to_bounds(SA1_SCALES, counts), counts):
-        torch.testing.assert_close(gn, need, rtol=0, atol=0)
-        torch.testing.assert_close(gt, c.sum(-1), rtol=0, atol=0)
+# row 10's layouts: SA1's scales on FPS centroids (M = 512) at the train
+# step's widths and an unaligned N, 1 to 4 scales in any order, M not a
+# multiple of the block's queries, a cloud over one window (a ring of
+# windows, the last chunk ragged); every case has a query with no hit
+BOUNDS_CASES = {
+    "N1100": (1100, 512, SA1_SCALES), "N4000": (4000, 512, SA1_SCALES), "N8000": (8000, 512, SA1_SCALES),
+    "N4097_M300": (4097, 300, SA1_SCALES), "N20001": (20001, 512, SA1_SCALES),
+    "three_descending": (1537, 512, ((0.4, 64), (0.2, 32), (0.1, 16))),
+    "four_unordered_M77": (2047, 77, ((0.2, 32), (0.05, 4), (0.4, 64), (0.1, 16))),
+    "one_scale": (8000, 512, ((0.1, 16),)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUNDS_CASES))
+def test_bounds_kernel_exact(card, case):
+    """Bit-equal to the plain version and, on FPS centroids (clouds the FPS
+    kernel takes), to counts_to_bounds of the FPS kernel's counts; one
+    launch a call."""
+    N, M, scales = BOUNDS_CASES[case]
+    xyz = _cloud(N + M, 3, N).to(card)
+    if N <= 8192:
+        idx, counts = furthest_point_sample_with_counts(xyz, M, tuple(r for r, _ in scales))
+        q = torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, 3)).contiguous()
+        reset_launch_counts()
+        got = ball_query_bounds(scales, xyz, q)
+        assert launch_counts()["bounds.prepass"] == 1
+        for (gn, gt), (need, _thr), c in zip(got, counts_to_bounds(scales, counts), counts):
+            torch.testing.assert_close(gn, need, rtol=0, atol=0)
+            torch.testing.assert_close(gt, c.sum(-1), rtol=0, atol=0)
+    else:
+        q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(N))[:M]].contiguous()
     q[1, 5] = 40.0  # no hit: need 1, total 0
-    got = ball_query_bounds(SA1_SCALES, xyz, q)
-    for (gn, gt), (wn, wt) in zip(got, ball_query_bounds_plain(SA1_SCALES, xyz, q)):
+    reset_launch_counts()
+    got = ball_query_bounds(scales, xyz, q)
+    assert launch_counts()["bounds.prepass"] == 1
+    for (gn, gt), (wn, wt) in zip(got, ball_query_bounds_plain(scales, xyz, q)):
         torch.testing.assert_close(gn, wn, rtol=0, atol=0)
         torch.testing.assert_close(gt, wt, rtol=0, atol=0)
         assert gn[1, 5] == 1.0 and gt[1, 5] == 0.0
+    assert (bqb.bounds_plan(3, N, M, len(scales)).window < N) == (N > 8192)
     with pytest.raises(ValueError):  # five scales
         ball_query_bounds(((0.1, 4),) * 5, xyz, q)
+
+
+@pytest.mark.parametrize("scales", [SA1_SCALES, ((0.2, 32), (0.05, 4), (0.4, 64), (0.1, 16))])
+def test_bounds_kernel_every_block_shape_exact(card, monkeypatch, scales):
+    """Every queries a thread the plan may pick (1/2/4, 4 for at most two
+    scales), each over a ring of 1536-point windows and over the whole
+    cloud, on a ragged cloud (N 4097: the last chunk one point) and a ragged
+    query tile (M 300): bit-equal to the plain version."""
+    N, M = 4097, 300
+    xyz = _cloud(N + len(scales), 3, N).to(card)
+    q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(N))[:M]].contiguous()
+    q[1, 5] = 40.0
+    want = ball_query_bounds_plain(scales, xyz, q)
+    base = bqb.bounds_plan(3, N, M, len(scales))
+    for queries in ((1, 2, 4) if len(scales) <= 2 else (1, 2)):
+        for window in (1536, 4608):
+            plan = dataclasses.replace(base, queries=queries, block_queries=bqb.THREADS * queries, window=window,
+                                       smem_bytes=bqb._window_smem(N, window))
+            monkeypatch.setattr(bqb, "bounds_plan", lambda *a, plan=plan: plan)
+            for (gn, gt), (wn, wt) in zip(ball_query_bounds(scales, xyz, q), want):
+                torch.testing.assert_close(gn, wn, rtol=0, atol=0, msg=str(plan))
+                torch.testing.assert_close(gt, wt, rtol=0, atol=0, msg=str(plan))
+
+
+def test_bounds_kernel_raises_when_a_plan_is_refused(card, monkeypatch):
+    """A plan over the shared-memory budget raises before any launch, and a
+    plan whose bytes disagree with the kernel's own is refused by the
+    launch; nothing falls back to the plain version."""
+    xyz = _cloud(4, 2, 4000).to(card)
+    q = xyz[:, :512].contiguous()
+    reset_launch_counts()
+    monkeypatch.setattr(bqb, "MAX_SMEM", 4000)
+    with pytest.raises(ValueError):
+        ball_query_bounds(SA1_SCALES, xyz, q)
+    monkeypatch.undo()
+    plan = bqb.bounds_plan(2, 4000, 512, 2)
+    monkeypatch.setattr(bqb, "bounds_plan", lambda *a: dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16))
+    with pytest.raises(RuntimeError):
+        ball_query_bounds(SA1_SCALES, xyz, q)
+    assert launch_counts()["bounds.prepass"] == 0
 
 
 # serving path (TPU rows 8 and 7): the multi-scale ball query exactly; the
@@ -806,3 +872,58 @@ def test_serving_matches_cold_forward_in_bf16(card):
         s, c = getattr(served, name).float(), getattr(cold, name).float()
         assert torch.isfinite(s).all()
         assert float((s - c).abs().max()) <= 1e-4, name
+
+
+def eval_stages(model, batch, pack=None, sa1_caches=None) -> dict:
+    """One eval forward of an SGPN (cold, or serving with ``sa1_caches``),
+    its outputs stage by stage: per encoder ("obj", "rel") SA1's centroids
+    and features and SA2's and SA3's features; the GCN's node and edge
+    inputs and outputs; both heads' log-probs (forward hooks; as
+    ``chip_smoke.py``'s)."""
+    out, hooks = {}, []
+
+    def keep(name, pick):
+        return lambda _m, args, res: out.__setitem__(name, pick(args, res).detach())
+
+    for key, enc in (("obj", model.obj_encoder), ("rel", model.rel_encoder)):
+        hooks += [enc.sa1.register_forward_hook(keep(f"{key}_sa1_xyz", lambda a, r: r[0])),
+                  enc.sa1.register_forward_hook(keep(f"{key}_sa1", lambda a, r: r[1])),
+                  enc.sa2.register_forward_hook(keep(f"{key}_sa2", lambda a, r: r[1])),
+                  enc.sa3.register_forward_hook(keep(f"{key}_sa3", lambda a, r: r))]
+    for i, part in enumerate(("obj", "rel")):
+        hooks += [model.gcn.register_forward_hook(keep(f"gcn_in_{part}", lambda a, r, i=i: a[i])),
+                  model.gcn.register_forward_hook(keep(f"gcn_out_{part}", lambda a, r, i=i: r[i]))]
+    hooks += [model.obj_predictor.register_forward_hook(keep("obj_head", lambda a, r: r)),
+              model.rel_predictor.register_forward_hook(keep("rel_head", lambda a, r: r))]
+    try:
+        with torch.no_grad():
+            model(batch, pack, sa1_caches=sa1_caches)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def test_serving_equals_cold_forward_in_f32_stage_by_stage(card):
+    """Float32 SGPN at the paper's widths on one scene: the serving forward
+    equals the cold unpaired one bit for bit at every stage (``eval_stages``:
+    both encoders' SA1-SA3, the GCN's inputs and outputs, both heads), and
+    so does a second cold forward: the GCN sums each node's messages in one
+    order on every run."""
+    from or4d_tpu_torch.config import DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.serving import _strip_points, build_sgpn_sa1_caches
+
+    batch = SceneBatch.stack(make_scene_samples(1, seed=5, n_objects=9, ds=DatasetConfig(), points_per_obj=2000))
+    pack = SlotPack.build(batch, bucket=8).to(card)
+    model = SGPN(device=card, seed=6)
+    with torch.no_grad():
+        caches = build_sgpn_sa1_caches(model, batch.to(card), pack)
+    served = eval_stages(model, _strip_points(batch).to(card), pack, caches)
+    cold = [eval_stages(model, batch.to(card), pack) for _ in range(2)]
+    assert float(served["rel_head"].abs().max()) > 0 and torch.isfinite(served["rel_head"]).all()
+    for name, want in cold[0].items():
+        assert torch.equal(served[name], want), name
+        assert torch.equal(cold[1][name], want), name

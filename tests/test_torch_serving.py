@@ -37,6 +37,7 @@ from or4d_tpu.ops.pallas_ball_query import ball_query_multiscale_pallas
 from or4d_tpu.ops.pallas_serving_mlp import serving_sa1_mlp_pallas
 from tests.reference_impls import ball_query_np
 from tests.test_torch_models import randomize
+from tests.test_torch_cuda import eval_stages
 
 from or4d_tpu_torch import serving
 from or4d_tpu_torch.config import TINY, DatasetConfig
@@ -250,6 +251,36 @@ def test_serving_matches_cold_unpaired_forward(sgpn_run, with_pack):
                     sa1_caches=serving.build_sgpn_sa1_caches(port, b, pack))
     for name in ("rel_logprobs", "obj_logprobs"):
         np.testing.assert_allclose(getattr(fast, name).numpy(), getattr(cold, name).numpy(), rtol=0, atol=1e-5)
+
+
+def test_serving_and_cold_forward_stage_by_stage(sgpn_run):
+    """The serving and the cold unpaired forward on the plain versions,
+    stage by stage (``eval_stages``): SA1's centroids equal, every
+    later stage within 1e-5 (the end-to-end contract), and a stage whose
+    inputs are equal gives equal outputs; a second cold forward equals the
+    first bit for bit. The card test of the same name holds the kernels to
+    bit equality at every stage in float32."""
+    port = sgpn_run[3]
+    batch = make_scene_batch(2, seed=8, n_objects=4, ds=DatasetConfig(**DS), points_per_obj=150)
+    pack = SlotPack.build(batch).to("cpu")
+    b = batch.to("cpu")
+    with torch.no_grad():
+        caches = serving.build_sgpn_sa1_caches(port, b, pack)
+    fast = eval_stages(port, serving._strip_points(batch).to("cpu"), pack, caches)
+    cold = eval_stages(port, b, pack)
+    again = eval_stages(port, b, pack)
+    enc = [f"{k}_{s}" for k in ("obj", "rel") for s in ("sa1_xyz", "sa1", "sa2", "sa3")]
+    assert list(fast) == list(cold) and set(fast) == {*enc, "gcn_in_obj", "gcn_in_rel", "gcn_out_obj",
+                                                      "gcn_out_rel", "obj_head", "rel_head"}
+    diff = {k: float((fast[k] - cold[k]).abs().max()) for k in fast}
+    assert diff["obj_sa1_xyz"] == diff["rel_sa1_xyz"] == 0.0
+    assert max(diff.values()) <= 1e-5, diff
+    follows = {"obj_sa2": ("obj_sa1",), "rel_sa2": ("rel_sa1",), "obj_sa3": ("obj_sa2",), "rel_sa3": ("rel_sa2",),
+               "gcn_out_obj": ("gcn_in_obj", "gcn_in_rel"), "gcn_out_rel": ("gcn_in_obj", "gcn_in_rel")}
+    for stage, inputs in follows.items():
+        if all(diff[i] == 0.0 for i in inputs):
+            assert diff[stage] == 0.0, (stage, diff)
+    assert all(torch.equal(again[k], cold[k]) for k in cold)
 
 
 def test_serving_refuses_paired_packs_and_train(sgpn_run):

@@ -163,6 +163,37 @@ def test_row10_matches_pallas_bounds_and_fps_counts():
         assert int(gn.max()) > 1
 
 
+@pytest.mark.parametrize("N,scales", [(1537, ((0.1, 16), (0.2, 32))), (1100, ((0.3, 8), (0.2, 16), (0.1, 4)))])
+def test_row10_chunk_edges_match_pallas(N, scales):
+    """N not a multiple of 512, scales in descending radius order too, M=40:
+    a query with no hit, one whose ns-th hit at the first scale is the last
+    point of chunk 0 (need 1), and one with fewer hits than any ns, all in
+    chunk 2 (need 3). No point lies near a radius (see the module
+    docstring)."""
+    rng = np.random.default_rng(N)
+    B, M = 2, 40
+    xyz = _cloud(rng, B, N, std=0.3)
+    q = xyz[:, rng.permutation(N)[:M]].copy()
+    q[1, 7] = 30.0  # no hit
+    ns0 = scales[0][1]
+    xyz[0, 512 - ns0: 512] = 5.0 + 1e-3 * rng.standard_normal((ns0, 3)).astype(np.float32)
+    q[0, 3] = 5.0
+    xyz[0, 1030:1033] = -5.0 + 1e-3 * rng.standard_normal((3, 3)).astype(np.float32)
+    q[0, 4] = -5.0
+    d2 = ((q[:, :, None, :].astype(np.float64) - xyz[:, None, :, :]) ** 2).sum(-1)
+    for r, _ns in scales:
+        assert np.abs(d2 - r * r).min() > 1e-5 * r * r  # no point on a radius
+    want = ball_query_bounds_pallas(scales, jnp.asarray(xyz), jnp.asarray(q), True)
+    got = ball_query_bounds(scales, torch.from_numpy(xyz), torch.from_numpy(q))
+    for (gn, gt), (wn, wt), (_r, ns) in zip(got, want, scales):
+        np.testing.assert_array_equal(gn.numpy(), np.asarray(wn))
+        np.testing.assert_array_equal(gt.numpy(), np.asarray(wt))
+        assert gn[1, 7] == 1.0 and gt[1, 7] == 0.0
+        assert gn[0, 4] == 3.0 and gt[0, 4] == 3.0 < ns
+        assert gt[0, 3] == ns0 and gn[0, 3] == 1.0
+    assert float(want[0][1][0, 3]) == ns0  # the first scale's ns-th hit is point 511
+
+
 def test_row10_rejects_bad_inputs():
     xyz = torch.zeros(1, 600, 3)
     with pytest.raises(ValueError):  # five scales
