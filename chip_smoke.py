@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
 NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
-path and with ``train_raw`` false), the bounds pre-pass and serving mode
-(cached SA1 geometry) at the paper's full widths.
+path and with ``train_raw`` false), the bounds pre-pass, serving mode
+(cached SA1 geometry) and the command line from disk to JSON (L2 instance
+labels, train, evaluate, infer, roles, phases) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --bounds-timing
 
 Every run drives all phases, each printing JSON lines; any failure exits
 non-zero, and nothing runs on the CPU except the CPU reference passes of the
-slice and train phases.
+slice and train phases and the disk phase's host stages (ingest, roles,
+phases) and its ``--device cpu`` L2 reference.
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit.
 2. build   — nvcc builds every kernel source; per kernel its registers,
@@ -112,8 +114,37 @@ slice and train phases.
              in one launch and each alone, and the points the searches read
              with and without a chunk bound).
 
-Then one ``kernels`` JSON line, nvidia-smi's line, and the last line
-``{"ok": true, "device": {...}}``. Weights are random, from a seed.
+12. disk — a data root in the 4D-OR release layout (every take of every
+             split, two scans each; 20,000 points a scan in millimetres:
+             four furniture objects, the patient and four staff at 2,000
+             points each, and a 2,000-point floor; every other pcd
+             ``binary_compressed``; GT labels, GT joints, Group-Free box npzs
+             and pose npys), written with the port's writers
+             (``data/synthetic_root.py``) into a temporary directory, then
+             the port's CLI (``cli.main``) through every stage on the card,
+             each stage's launch counters zeroed before it and read after
+             (``DISK_KERNELS``: the kernels it must launch):
+             ``instance-labels`` (the pred path; its FPS calls and distance
+             tests recorded), then the same command with ``--device cpu``,
+             whose label npzs must be equal but for points within 2 mm^2 of a
+             distance test's threshold^2; the ingest (read + prep of every
+             sample the later stages read, into their cache); ``train
+             --strict-data`` (one epoch: two S=8 steps and the validation,
+             a checkpoint); ``evaluate`` cold and ``--serving``; ``infer``
+             from the checkpoint and with ``--torch-checkpoint`` of a random
+             reference-layout .pth written under --out (its scan_relations
+             keys must be the test scans); ``roles``, ``phases`` and
+             ``phases-eval`` on that JSON. One ``disk`` line: each stage's
+             host seconds, ingest and infer scans/s, peak device memory and
+             the process's peak RSS, losses and F1 (finite). Then row 2 at L2's recorded
+             calls (``timing_l2_fps``): each held exactly against its plain
+             version on the card, then timed (ms per call) beside it and its
+             bound.
+
+Then one ``kernels`` JSON line (row 2's L2 calls as its own entry,
+``fps_l2``, per call, with its launches per scan), nvidia-smi's line, and
+the last line ``{"ok": true, "device": {...}}``. Weights are random, from a
+seed.
 
 ``--bounds-timing`` runs only ``bounds_timing``: the bounds pre-pass alone
 at the train step's two SA1 call shapes, for comparing the kernel of two
@@ -1541,6 +1572,257 @@ def serving_phases(args, rec, smi, results, stats) -> None:
     torch.cuda.empty_cache()
 
 
+# TPU kernel row 2 as L2 (instance-labels) calls it: box grids and limb
+# clouds -> 200 samples; its own entry in the kernels line, per call
+L2_ROW = ("fps_l2", "fps.fps", "or4d_tpu_torch/ops/csrc/fps.cu", "or4d_tpu/ops/pallas_fps.py:200")
+# the kernels each CLI stage of the disk phase must launch (counters)
+DISK_KERNELS = {
+    "instance-labels": ("fps.fps",),
+    "train": ("fps.fps_bounds", "fps.fps", "group_raw.fwd", "group_raw.bwd", "group.fwd", "group.bwd",
+              "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "evaluate": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "evaluate_serving": ("fps.fps", "ball_query.multiscale", "serving_sa1.mlp", "sa_group_mlp.plane"),
+    "infer": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "infer_torch_checkpoint": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+}
+L2_BOUNDARY_MM2 = 2.0  # a label may flip only this close to a distance test's threshold^2
+
+
+def run_cli(argv, log) -> tuple[float, dict, str]:
+    """``or4d_tpu_torch.cli.main(argv)`` with its counters zeroed just before
+    and read just after: (host seconds, launches, its standard output, also
+    appended to ``log``)."""
+    import contextlib
+    import io
+
+    from or4d_tpu_torch import cli
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    out = buf.getvalue()
+    with open(log, "a") as f:
+        f.write(f"$ cli {' '.join(argv)}\n{out}\n")
+    if rc != 0:
+        fail(f"cli {argv[0]} exited {rc}")
+    return seconds, launches, out
+
+
+def l2_label_diffs(card_dir: Path, cpu_dir: Path, root: Path, tests) -> dict:
+    """Every label npz of the card run against the ``--device cpu`` run:
+    differing points, each only within L2_BOUNDARY_MM2 of some distance
+    test's threshold^2 (the f32 expansion rounds apart there)."""
+    import numpy as np
+
+    from or4d_tpu_torch.data.pcd_io import read_pcd
+
+    files = sorted(p.name for p in card_dir.glob("*.npz"))
+    if not files or files != sorted(p.name for p in cpu_dir.glob("*.npz")):
+        fail(f"instance-labels wrote different files on the card and the CPU: {files}")
+    n_diff, worst, listed = 0, 0.0, []
+    for name in files:
+        a, b = np.load(card_dir / name)["arr_0"], np.load(cpu_dir / name)["arr_0"]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{name}: labels {a.dtype}{a.shape} on the card, {b.dtype}{b.shape} on the CPU")
+        idx = np.nonzero(a != b)[0]
+        if len(idx) == 0:
+            continue
+        take, scan = name[:-4].split("_")
+        pts = read_pcd(root / f"export_holistic_take{take}_processed" / "pcds" / f"{scan}.pcd")[idx, :3]
+        for i, p in zip(idx, pts.astype(np.float64)):
+            near = min(abs(float(((s - p) ** 2).sum(1).min()) - thr * thr) for s, thr in tests)
+            listed.append((name, int(i), int(a[i]), int(b[i]), near))
+            worst = max(worst, near)
+        n_diff += len(idx)
+    if worst > L2_BOUNDARY_MM2:
+        fail(f"L2 labels on the card differ from the CPU's away from every threshold: {listed}")
+    return {"files": len(files), "differing_points": n_diff, "max_threshold_distance_mm2": worst,
+            "points": listed[:20]}
+
+
+def disk_phases(args, smi, results, stats) -> None:
+    """The disk phase (see the module docstring): a data root in the release
+    layout written with the port's writers into a temporary directory, then
+    the port's CLI from it through every stage on the card. Adds row 2's L2
+    entry (``stats["l2_row"]``) for the kernels line."""
+    import contextlib
+    import math
+    import resource
+    import tempfile
+
+    from or4d_tpu_torch.config import load_config
+    from or4d_tpu_torch.data.dataset import ORDataset
+    from or4d_tpu_torch.data.synthetic_root import write_data_root
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.ops import fps
+    from or4d_tpu_torch.pipeline import instance_labels as il
+    from or4d_tpu_torch.train import checkpoint as ckpt
+    from or4d_tpu_torch.utils.torch_import import export_reference_state_dict
+
+    out_dir = Path(args.out) / "disk"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log = out_dir / "cli.log"
+    log.write_text("")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stages, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="or4d_disk_") as tmp:
+        tmp = Path(tmp)
+        root, cache = tmp / "data", tmp / "cache"
+        t0 = time.perf_counter()
+        info = write_data_root(root, seed=args.seed, scans_per_take=2)
+        stages["write"] = time.perf_counter() - t0
+        n_scans = sum(info["scans"].values())
+
+        # instance-labels (pred path) on the card, its FPS calls and distance
+        # tests recorded; then the same command on the CPU
+        calls, tests = [], []
+        orig_fps, orig_close = il.furthest_point_sample, il.close_mask
+
+        def fps_rec(xyz, n):
+            calls.append((xyz.detach().clone(), n))
+            return orig_fps(xyz, n)
+
+        def close_rec(points, samples, bbox, threshold):
+            tests.append((samples.detach().double().cpu().numpy(), float(threshold)))
+            return orig_close(points, samples, bbox, threshold)
+
+        il.furthest_point_sample, il.close_mask = fps_rec, close_rec
+        try:
+            stages["instance_labels"], launches["instance-labels"], _ = run_cli(
+                ["instance-labels", "--data-root", str(root)], log)
+        finally:
+            il.furthest_point_sample, il.close_mask = orig_fps, orig_close
+        t0 = time.perf_counter()
+        run_cli(["instance-labels", "--data-root", str(root), "--output-dir", str(tmp / "l2_cpu"), "--device", "cpu"],
+                log)
+        stages["instance_labels_cpu"] = time.perf_counter() - t0
+        l2_diff = l2_label_diffs(root / "instance_labels_pred", tmp / "l2_cpu" / "instance_labels_pred", root, tests)
+
+        # ingest: read + prep of every sample the CLI stages below read, into
+        # their cache (train; val paired for train's validation and evaluate;
+        # val unpaired for serving; test for infer)
+        cfg = load_config("no_gt")
+        kw = dict(data_root=root, cache_dir=cache, synthetic_fallback=False)
+        t0 = time.perf_counter()
+        n_ingest = 0
+        with open(log, "a") as f, contextlib.redirect_stdout(f):
+            for split, extra in (("train", {}), ("val", {"pair_shared": True}), ("val", {"pair_shared": False}),
+                                 ("test", {"for_eval": True})):
+                ds = ORDataset(cfg, split, DEFAULT_VOCAB, **kw, **extra)
+                for i in range(len(ds)):
+                    ds.sample(i)
+                n_ingest += len(ds)
+        stages["ingest"] = time.perf_counter() - t0
+
+        base = ["--config", "no_gt", "--data-root", str(root), "--cache-dir", str(cache), "--strict-data",
+                "--seed", str(args.seed)]
+        ck = tmp / "ck"
+        stages["train"], launches["train"], text = run_cli(["train", *base, "--checkpoint-dir", str(ck),
+                                                            "--epochs", "1"], log)
+        history = json.loads(text.strip().splitlines()[-1])
+        f1 = {}
+        stages["evaluate"], launches["evaluate"], text = run_cli(["evaluate", *base, "--checkpoint-dir", str(ck)], log)
+        f1["evaluate"] = json.loads(text.strip().splitlines()[-1])["relation_macro_f1"]
+        stages["evaluate_serving"], launches["evaluate_serving"], text = run_cli(
+            ["evaluate", *base, "--checkpoint-dir", str(ck), "--serving", "--serving-cache-dir", str(tmp / "sc")], log)
+        f1["evaluate_serving"] = json.loads(text.strip().splitlines()[-1])["relation_macro_f1"]
+        rels_path = tmp / "scan_relations_no_gt_test.json"
+        stages["infer"], launches["infer"], _ = run_cli(["infer", *base, "--checkpoint-dir", str(ck),
+                                                         "--output", str(rels_path)], log)
+        if ckpt.latest_step(ck) is None:
+            fail(f"train wrote no checkpoint under {ck}")
+        pth = out_dir / "reference_layout.pth"
+        torch.save(export_reference_state_dict(SGPN.from_config(cfg, DEFAULT_VOCAB.num_classes,
+                                                                DEFAULT_VOCAB.num_relations, device="cpu",
+                                                                seed=args.seed + 7)), pth)
+        ref_rels = tmp / "scan_relations_reference_layout.json"
+        stages["infer_torch_checkpoint"], launches["infer_torch_checkpoint"], text = run_cli(
+            ["infer", *base, "--torch-checkpoint", str(pth), "--output", str(ref_rels)], log)
+        pth.unlink()
+        if "imported reference torch checkpoint" not in text:
+            fail("infer --torch-checkpoint did not import the reference-layout .pth")
+        with open(log, "a") as f, contextlib.redirect_stdout(f):
+            test_scans = ORDataset(cfg, "test", DEFAULT_VOCAB, for_eval=True, **kw).scans
+        test_ids = sorted(f"{s['take_idx']}_{s['scan']}_2" for s in test_scans)
+        rels = {p.name: json.loads(p.read_text()) for p in (rels_path, ref_rels)}
+        for name, r in rels.items():
+            if sorted(r) != test_ids or not all(len(t) == 3 for v in r.values() for t in v):
+                fail(f"{name}: scan_relations keys {sorted(r)} are not the test scans {test_ids}")
+
+        roles = tmp / "roles.json"
+        stages["roles"], _, _ = run_cli(["roles", "--relations", str(rels_path), "--output", str(roles)], log)
+        stages["phases"], _, _ = run_cli(["phases", "--relations", str(rels_path), "--roles", str(roles),
+                                          "--output-dir", str(tmp / "phases")], log)
+        gt_dir = tmp / "phases_gt"
+        gt_dir.mkdir()
+        for take in sorted({k.split("_")[0] for k in rels[rels_path.name]}):
+            (gt_dir / f"phase_to_frames_{take}.json").write_text(json.dumps({"sterile": [0, 1]}))
+        stages["phases_eval"], _, _ = run_cli(["phases-eval", "--gt-dir", str(gt_dir), "--pred-dir",
+                                               str(tmp / "phases")], log)
+        written = {"roles": roles.exists(), "phases": len(list((tmp / "phases").glob("*.json")))}
+        if not written["roles"] or written["phases"] != len({k.split("_")[0] for k in test_ids}):
+            fail(f"roles/phases files missing: {written}")
+        data_bytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+    finite = all(math.isfinite(v) for v in (history["train_loss"], history["val_macro_f1"], *f1.values()))
+    missing = {stage: [c for c in need if launches[stage].get(c, 0) == 0] for stage, need in DISK_KERNELS.items()}
+    missing = {k: v for k, v in missing.items() if v}
+    disk = {
+        "card": smi, "config": "no_gt", "scans": info["scans"], "points_per_scan": info["points_per_scan"],
+        "binary_compressed_pcds": info["compressed"], "data_bytes": data_bytes, "stage_host_seconds": stages,
+        "ingest_scans": n_ingest, "ingest_scans_per_s": n_ingest / stages["ingest"],
+        "infer_scans_per_s": info["scans"]["test"] / stages["infer"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        # the process's peak since it started (earlier phases included)
+        "process_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "train": history, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
+        "l2_launches_per_scan": launches["instance-labels"]["fps.fps"] / n_scans,
+        "launches": {stage: {c: n for c, n in d.items() if n} for stage, d in launches.items()},
+        "finite": finite,
+    }
+    results["disk"] = disk
+    emit({"phase": "disk", **disk})
+    if not finite:
+        fail(f"disk phase: non-finite loss or F1: {history} {f1}")
+    if missing:
+        fail(f"disk phase: kernels not launched: {missing}")
+
+    # row 2 at L2's calls: each held exactly against its plain version on the
+    # card, then timed beside it and its bound
+    err, k_ms, p_ms, b_ms, b_t = 0.0, [], [], [], [0.0, 0.0]
+    for xyz, n in calls:
+        got = fps.furthest_point_sample(xyz, n)
+        want = fps.furthest_point_sample_plain(xyz, n)
+        d = max_abs_diff(got, want)
+        err = max(err, d)
+        if d != 0.0:
+            fail(f"fps_l2 kernel disagrees with its plain version at {tuple(xyz.shape)}: max |diff| {d}")
+        k_ms.append(cuda_ms(lambda: fps.furthest_point_sample(xyz, n), 5))
+        p_ms.append(cuda_ms(lambda: fps.furthest_point_sample_plain(xyz, n), 1))
+        ms, by, _info = bound("furthest_point_sample", (xyz, n), {})
+        b_ms.append(ms)
+        b_t[0 if by == "bytes" else 1] += ms
+    shapes = sorted({tuple(x.shape) for x, _n in calls})
+    stats["errs"][L2_ROW[0]] = err
+    stats["l2_row"] = {
+        "name": L2_ROW[0], "route": "cuda", "source": L2_ROW[2], "replaces": L2_ROW[3],
+        "launches": launches["instance-labels"][L2_ROW[1]], "max_abs_err": err,
+        "ms": sum(k_ms) / len(k_ms), "plain_ms": sum(p_ms) / len(p_ms), "bound_ms": sum(b_ms) / len(b_ms),
+        "bound_by": "bytes" if b_t[0] >= b_t[1] else "operations", "library_ms": None,
+        "per": "call", "launches_per_scan": disk["l2_launches_per_scan"], "calls": len(calls),
+        "shapes": [str(s) for s in (shapes[0], shapes[-1])],
+    }
+    emit({"phase": "timing_l2_fps", "card": smi, **stats["l2_row"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
@@ -1718,6 +2000,7 @@ def main(argv=None) -> int:
              "bound_ms": bound_ms, "bound_t": bound_t, "library_ms": {}}
     train_phases(args, rec, smi, results, stats)
     serving_phases(args, rec, smi, results, stats)
+    disk_phases(args, smi, results, stats)
     rows = ROWS + TRAIN_ROWS + SERVING_ROWS + GATED_ROWS + BOUNDS_ROWS
     unmeasured = [r[0] for r in rows if r[0] not in errs or r[0] not in kern_ms]
     if unmeasured:
@@ -1734,6 +2017,7 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if bound_t[row][0] >= bound_t[row][1] else "operations",
             "library_ms": stats["library_ms"].get(row),
         })
+    kernels.append(stats["l2_row"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -20,6 +20,47 @@ from pathlib import Path
 from typing import Any
 
 
+# ---------------------------------------------------------------------------
+# dataset-level constants (reference: helpers/configurations.py:29-61)
+# ---------------------------------------------------------------------------
+
+OBJECT_LABEL_MAP: dict[str, int] = {
+    "anesthesia_equipment": 0,
+    "operating_table": 1,
+    "instrument_table": 2,
+    "secondary_table": 3,
+    "instrument": 4,
+    "object": 5,
+    "Patient": 9,
+    "human_0": 10,
+    "human_1": 11,
+    "human_2": 12,
+    "human_3": 13,
+    "human_4": 14,
+    "human_5": 15,
+    "human_6": 16,
+    "human_7": 17,
+}
+
+TAKE_SPLIT: dict[str, list[int]] = {"train": [1, 3, 5, 7, 9, 10], "val": [4, 8], "test": [2, 6]}
+
+DEPTH_SCALING = 2000
+
+# 14-joint skeleton (reference: helpers/configurations.py:65-97)
+LIMBS: list[list[int]] = [
+    [5, 4], [9, 7], [7, 3], [2, 6], [6, 8], [5, 3], [4, 2],
+    [3, 1], [2, 1], [1, 0], [10, 4], [11, 5], [12, 10], [13, 11],
+]
+
+IDX_TO_BODY_PART = [
+    "head", "neck", "leftshoulder", "rightshoulder", "lefthip", "righthip",
+    "leftelbow", "rightelbow", "leftwrist", "rightwrist", "leftknee",
+    "rightknee", "leftfoot", "rightfoot",
+]
+
+STATIONARY_OBJECTS = ["instrument_table", "secondary_table"]
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The MODEL block of the reference JSON configs."""

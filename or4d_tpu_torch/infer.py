@@ -57,7 +57,7 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     from or4d_tpu_torch.device import resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--synthetic", action="store_true", help="synthetic pair-shared scenes (the only input so far)")
+    p.add_argument("--synthetic", action="store_true", help="synthetic pair-shared scenes (the only input here)")
     p.add_argument("--scenes", type=int, default=8)
     p.add_argument("--config", default="no_gt", help="no_gt (paper shapes) or tiny (smoke shapes)")
     p.add_argument("--output", required=True)
@@ -65,7 +65,7 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if not args.synthetic:
-        p.error("only --synthetic input is ported so far")
+        p.error("only --synthetic input here; for a data root use python -m or4d_tpu_torch.cli")
 
     cfg = load_config(args.config)
     vocab = DEFAULT_VOCAB

@@ -35,7 +35,7 @@ def main(argv: list[str] | None = None) -> dict:
     from or4d_tpu_torch.train.loop import Trainer
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--synthetic", action="store_true", help="synthetic labeled scenes (the only input so far)")
+    p.add_argument("--synthetic", action="store_true", help="synthetic labeled scenes (the only input here)")
     p.add_argument("--config", default="no_gt", help="no_gt (paper shapes) or tiny (smoke shapes)")
     p.add_argument("--scenes", type=int, default=8)
     p.add_argument("--steps", type=int, default=10)
@@ -48,7 +48,7 @@ def main(argv: list[str] | None = None) -> dict:
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     if not args.synthetic:
-        p.error("only --synthetic input is ported so far")
+        p.error("only --synthetic input here; for a data root use python -m or4d_tpu_torch.cli")
 
     cfg = load_config(args.config)
     vocab = DEFAULT_VOCAB

@@ -927,3 +927,81 @@ def test_serving_equals_cold_forward_in_f32_stage_by_stage(card):
     for name, want in cold[0].items():
         assert torch.equal(served[name], want), name
         assert torch.equal(cold[1][name], want), name
+
+
+def _l2_clouds():
+    """L2's two cloud kinds: 20^3 box grids (exact distance ties) and a
+    limb-cylinder skeleton cloud (~1.4k points), both in millimetres."""
+    from or4d_tpu_torch.data.synthetic_root import _POSE
+    from or4d_tpu_torch.pipeline.instance_labels import oriented_box_to_grid, skeleton_to_limb_points
+
+    grids = np.stack([oriented_box_to_grid(np.array([c, 500.0, -c, 1200.0, 800.0, 700.0, h]))
+                      for c, h in ((0.0, 0.0), (900.0, 0.21), (-700.0, -0.13))]).astype(np.float32)
+    limbs = skeleton_to_limb_points(_POSE + np.array([300.0, 0.0, -200.0]))[None].astype(np.float32)
+    return torch.from_numpy(grids), torch.from_numpy(np.ascontiguousarray(limbs))
+
+
+def test_l2_fps_kernel_exact(card):
+    """Row 2 at L2's shapes: (1, 8000, 3) and (3, 8000, 3) box grids and a
+    limb cloud -> 200, against the plain version, exactly."""
+    grids, limbs = _l2_clouds()
+    assert 1000 < limbs.shape[1] < 8192
+    for xyz in (grids[:1], grids, limbs):
+        reset_launch_counts()
+        got = furthest_point_sample(xyz.to(card), 200)
+        assert launch_counts()["fps.fps"] == 1
+        torch.testing.assert_close(got.cpu(), furthest_point_sample(xyz, 200), rtol=0, atol=0)
+
+
+TINY_REAL_JSON = {
+    "LR": 1e-3, "USE_GT": False, "MAX_EPOCHES": 1,
+    "dataset": {"num_points_objects": 96, "num_points_relation": 128, "data_augmentation": False},
+    "MODEL": {"sa_npoints": [32, 16], "sa_nsamples": [[4, 8], [8, 8]]},
+    "TPU": {"max_objects": 6, "max_edges": 30, "scene_batch": 2},
+}
+
+
+def test_cli_infer_on_the_card_equals_cpu(card, tmp_path):
+    """``cli infer`` from the fixture (``tests/golden/real_data``, val split)
+    with one random reference-layout .pth, in float32: the card writes the
+    same scan_relations JSON as ``--device cpu``, and its log-probs are
+    within 1e-3 of the CPU's on the same samples."""
+    import json
+    from pathlib import Path
+
+    from or4d_tpu_torch import cli
+    from or4d_tpu_torch.config import load_config
+    from or4d_tpu_torch.data.dataset import ORDataset
+    from or4d_tpu_torch.data.scene_batch import SlotPack, is_pair_shared
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.models import SGPN
+    from or4d_tpu_torch.utils.torch_import import export_reference_state_dict, load_reference_checkpoint
+
+    root = Path(__file__).parent / "golden" / "real_data"
+    config = tmp_path / "tiny.json"
+    config.write_text(json.dumps(TINY_REAL_JSON))
+    cfg = load_config(str(config))
+    pth = tmp_path / "ref.pth"
+    torch.save(export_reference_state_dict(SGPN.from_config(cfg, 12, 15, device="cpu", seed=3)), pth)
+    base = ["infer", "--config", str(config), "--data-root", str(root), "--strict-data", "--split", "val",
+            "--torch-checkpoint", str(pth), "--cache-dir", str(tmp_path / "c")]
+    reset_launch_counts()
+    assert cli.main(base + ["--output", str(tmp_path / "card.json")]) == 0
+    assert launch_counts()["sa_group_mlp.raw"] > 0
+    assert cli.main(base + ["--output", str(tmp_path / "cpu.json"), "--device", "cpu"]) == 0
+    card_rels = json.loads((tmp_path / "card.json").read_text())
+    assert card_rels == json.loads((tmp_path / "cpu.json").read_text()) and len(card_rels["4_000000_1"]) > 0
+
+    batch = next(ORDataset(cfg, "val", DEFAULT_VOCAB, data_root=root, cache_dir=tmp_path / "c", for_eval=True,
+                           synthetic_fallback=False).batches(2))
+    pack = SlotPack.build(batch, paired=is_pair_shared(batch))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        model = SGPN.from_config(cfg, 12, 15, device=dev, seed=0)
+        load_reference_checkpoint(pth, model)
+        with torch.no_grad():
+            out[dev.type] = model(batch.to(dev), pack.to(dev))
+    em, om = torch.from_numpy(batch.edge_mask), torch.from_numpy(batch.obj_mask)
+    for name, mask in (("rel_logprobs", em), ("obj_logprobs", om)):
+        got, want = getattr(out["cuda"], name).cpu()[mask], getattr(out["cpu"], name)[mask]
+        assert float((got - want).abs().max()) <= 1e-3, name

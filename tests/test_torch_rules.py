@@ -2,8 +2,9 @@
 
 * no module of ``or4d_tpu_torch`` (the train and ops modules included) and
   not ``chip_smoke.py`` imports jax, flax, optax or the JAX package;
-* entry points (``infer``, ``train``, ``serving``) raise without a card
-  unless they are given ``device="cpu"``; ``python -m or4d_tpu_torch.train
+* entry points (``infer``, ``train``, ``serving``, and ``cli`` in every
+  mode that uses a device, with the L2 functions it calls) raise without a
+  card unless they are given ``device="cpu"``; ``python -m or4d_tpu_torch.train
   --device cpu`` writes a finite history, and ``python -m
   or4d_tpu_torch.serving --device cpu`` prints a finite macro F1;
 * a kernel build with no compiler raises (no plain-version fallback);
@@ -74,6 +75,30 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         serving_main(["--synthetic", "--config", "tiny", "--scenes", "1", "--cache-dir", str(tmp_path / "c")])
     assert not (tmp_path / "c").exists()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels"])
+def test_cli_device_modes_raise_without_a_card(no_card, tmp_path, mode):
+    from or4d_tpu_torch import cli
+
+    root = Path(__file__).parent / "golden" / "real_data"
+    out = tmp_path / "out"
+    args = [mode, "--config", "tiny", "--data-root", str(root), "--cache-dir", str(tmp_path / "c"),
+            "--checkpoint-dir", str(tmp_path / "ck"), "--output", str(out), "--output-dir", str(out)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    assert not out.exists() and not (tmp_path / "c").exists() and not (tmp_path / "ck").exists()
+
+
+def test_l2_functions_raise_without_a_card(no_card, tmp_path):
+    from or4d_tpu_torch.pipeline import instance_labels as il
+
+    root = Path(__file__).parent / "golden" / "real_data"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        il.compute_instance_labels_for_scan(np.zeros((10, 3), np.float32), human_poses={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        il.process_take(root, 1, from_gt=True, out_root=tmp_path)
+    assert not any(tmp_path.iterdir())
 
 
 def test_train_cli_on_cpu_writes_a_finite_history(tmp_path):
