@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
 NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
-path and with ``train_raw`` false), the bounds pre-pass, serving mode
-(cached SA1 geometry) and the command line from disk to JSON (L2 instance
-labels, train, evaluate, infer, roles, phases) at the paper's full widths.
+path and with ``train_raw`` false; at the largest batch with ``remat``),
+the bounds pre-pass, FPS over 8192 points (the cluster kernel), the
+``no_gt_image`` path (EfficientNet-B5 image branch), serving mode (cached
+SA1 geometry) and the command line from disk to JSON (L2 instance labels,
+train, evaluate, infer, roles, phases; ``no_gt_image``; ``--from-gt`` on
+registered scans over 8192 points) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --bounds-timing
+    python3 chip_smoke.py --largest-batch
 
 Every run drives all phases, each printing JSON lines; any failure exits
 non-zero, and nothing runs on the CPU except the CPU reference passes of the
@@ -37,6 +41,12 @@ phases) and its ``--device cpu`` L2 reference.
              batch must run the fused SA stage's bfloat16 (tensor-core) body
              only. Row 1's calls split: FPS alone, with counts, the
              ``counts_to_bounds`` of the counts, and the bounds variant.
+5b. fps_large — row 2's cluster variant (``fps_cluster.cu``) against its
+             plain version on the card, exactly, then timed beside it and its
+             bound: N = 8193, GroupFree's (8, 20,000) -> 2048, the streamed
+             tier at (1, 200,000) -> 200, grids of exact ties at 20,000 and
+             100,000, the counts and bounds variants at (8, 20,000) -> 2048;
+             each call launches the cluster kernel once.
 6. check_train — the train grouping kernels (forward and backward: raw
              mode, plane mode, and plane mode with the FPS bound, SA1's
              grouping with ``train_raw`` false) against their plain versions
@@ -83,6 +93,19 @@ phases) and its ``--device cpu`` L2 reference.
              top clock); its calls split (``timing_bounds_split``): every
              scale at once, each scale alone, the first half of the
              queries.
+8b. largest_batch — the S=8 float32 ``no_gt`` step at the config's
+             largest batch (12 objects, 132 edges a scene: 96 and 1056 rows)
+             with ``TPUConfig.remat`` (the step runs out of memory without
+             it: ``--largest-batch`` alone, which lists the tensors held for
+             the backward first): peak memory and step ms. ``remat_equal``:
+             one step at the train phase's batch with ``remat`` off and on
+             from the same weights and draws, losses within 1e-4 and
+             gradients within 1e-3 of the largest.
+8c. image   — the ``no_gt_image`` float32 train step at S=8 on 456 x 456
+             frames (three steps; the SGPN kernels' counters must rise) and
+             an S=64 eval batch with frames: ms, scenes/s, peak memory, the
+             image branch's ms alone; the card's embedding against the
+             CPU's on one scene, within 1e-4 of its largest value.
 9. check_serving — the multi-scale ball query (exactly, every scale) and
              the serving SA1 MLP (1e-4 float32, 2e-2 bfloat16) against their
              plain versions on the card, on the inputs of an S=8 bfloat16
@@ -136,13 +159,21 @@ phases) and its ``--device cpu`` L2 reference.
              keys must be the test scans); ``roles``, ``phases`` and
              ``phases-eval`` on that JSON. One ``disk`` line: each stage's
              host seconds, ingest and infer scans/s, peak device memory and
-             the process's peak RSS, losses and F1 (finite). Then row 2 at L2's recorded
-             calls (``timing_l2_fps``): each held exactly against its plain
-             version on the card, then timed (ms per call) beside it and its
-             bound.
+             the process's peak RSS, losses and F1 (finite). Then, on the
+             same root with the fixture's camera frames added to every take,
+             ``train``, ``evaluate`` and ``infer`` with ``--config
+             no_gt_image``; and ``instance-labels --from-gt`` on a copy of
+             the fixture root whose two take-1 registered object scans are
+             rewritten at 20,000 points, on the card and with ``--device
+             cpu``: labels equal. Then row 2 at L2's recorded calls
+             (``timing_l2_fps``) and its cluster variant at the from-gt
+             calls over 8192 points (``timing_from_gt_fps``): each held
+             exactly against its plain version on the card, then timed (ms
+             per call) beside it and its bound.
 
 Then one ``kernels`` JSON line (row 2's L2 calls as its own entry,
-``fps_l2``, per call, with its launches per scan), nvidia-smi's line, and
+``fps_l2``, per call, with its launches per scan; row 2's cluster variant
+as ``fps_large``, per call at the from-gt calls), nvidia-smi's line, and
 the last line ``{"ok": true, "device": {...}}``. Weights are random, from a
 seed.
 
@@ -155,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1584,7 +1616,13 @@ DISK_KERNELS = {
     "evaluate_serving": ("fps.fps", "ball_query.multiscale", "serving_sa1.mlp", "sa_group_mlp.plane"),
     "infer": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
     "infer_torch_checkpoint": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "train_image": ("fps.fps_bounds", "fps.fps", "group_raw.fwd", "group_raw.bwd", "group.fwd", "group.bwd",
+                    "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "evaluate_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "infer_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
+    "instance-labels-from-gt": ("fps.fps_large",),
 }
+FIXTURE = Path(__file__).resolve().parent / "tests" / "golden" / "real_data"
 L2_BOUNDARY_MM2 = 2.0  # a label may flip only this close to a distance test's threshold^2
 
 
@@ -1658,7 +1696,9 @@ def disk_phases(args, smi, results, stats) -> None:
 
     from or4d_tpu_torch.config import load_config
     from or4d_tpu_torch.data.dataset import ORDataset
-    from or4d_tpu_torch.data.synthetic_root import write_data_root
+    import numpy as np
+
+    from or4d_tpu_torch.data.synthetic_root import add_camera_frames, densify_object_scan, write_data_root
     from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
     from or4d_tpu_torch.models import SGPN
     from or4d_tpu_torch.ops import fps
@@ -1772,7 +1812,58 @@ def disk_phases(args, smi, results, stats) -> None:
             fail(f"roles/phases files missing: {written}")
         data_bytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
 
-    finite = all(math.isfinite(v) for v in (history["train_loss"], history["val_macro_f1"], *f1.values()))
+        # no_gt_image: the fixture's camera frames in every take, then train,
+        # evaluate and infer with --config no_gt_image from the same sample
+        # cache (the frames ride outside it, decoded per access)
+        add_camera_frames(root, FIXTURE / "export_holistic_take1_processed" / "colorimage")
+        ibase = ["--config", "no_gt_image", *base[2:]]
+        ck_img = tmp / "ck_image"
+        stages["train_image"], launches["train_image"], text = run_cli(
+            ["train", *ibase, "--checkpoint-dir", str(ck_img), "--epochs", "1"], log)
+        history_img = json.loads(text.strip().splitlines()[-1])
+        stages["evaluate_image"], launches["evaluate_image"], text = run_cli(
+            ["evaluate", *ibase, "--checkpoint-dir", str(ck_img)], log)
+        f1["evaluate_image"] = json.loads(text.strip().splitlines()[-1])["relation_macro_f1"]
+        rels_img = tmp / "scan_relations_no_gt_image_test.json"
+        stages["infer_image"], launches["infer_image"], _ = run_cli(
+            ["infer", *ibase, "--checkpoint-dir", str(ck_img), "--output", str(rels_img)], log)
+        r = json.loads(rels_img.read_text())
+        if sorted(r) != test_ids or not all(len(t) == 3 for v in r.values() for t in v):
+            fail(f"no_gt_image infer: scan_relations keys {sorted(r)} are not the test scans {test_ids}")
+
+        # instance-labels --from-gt on the fixture's takes with two registered
+        # object scans of take 1 rewritten at 20,000 points (the cluster FPS),
+        # its FPS calls over 8192 points recorded; then on the CPU
+        gt_root = tmp / "gt_root"
+        shutil.copytree(FIXTURE, gt_root, ignore=shutil.ignore_patterns("instance_labels"))
+        for name in ("instrument_table", "operating_table"):
+            densify_object_scan(gt_root, name, 1, 20000, seed=args.seed)
+        big_calls = []
+
+        def fps_big(xyz, n):
+            if xyz.shape[1] > fps._MAX_N:
+                big_calls.append((xyz.detach().clone(), n))
+            return orig_fps(xyz, n)
+
+        il.furthest_point_sample = fps_big
+        try:
+            stages["instance_labels_from_gt"], launches["instance-labels-from-gt"], _ = run_cli(
+                ["instance-labels", "--from-gt", "--data-root", str(gt_root)], log)
+        finally:
+            il.furthest_point_sample = orig_fps
+        t0 = time.perf_counter()
+        run_cli(["instance-labels", "--from-gt", "--data-root", str(gt_root), "--output-dir", str(tmp / "gt_cpu"),
+                 "--device", "cpu"], log)
+        stages["instance_labels_from_gt_cpu"] = time.perf_counter() - t0
+        gt_card = {p.name: np.load(p)["arr_0"] for p in sorted((gt_root / "instance_labels").glob("*.npz"))}
+        gt_cpu = {p.name: np.load(p)["arr_0"] for p in sorted((tmp / "gt_cpu" / "instance_labels").glob("*.npz"))}
+        from_gt = {"scans": len(gt_card), "big_calls": [str(tuple(x.shape)) for x, _n in big_calls],
+                   "labels_differing": {k: int((gt_card[k] != gt_cpu.get(k)).sum()) for k in gt_card}}
+        if not big_calls or sorted(gt_card) != sorted(gt_cpu) or any(from_gt["labels_differing"].values()):
+            fail(f"instance-labels --from-gt on scans over 8192 points: card vs CPU {from_gt}")
+
+    finite = all(math.isfinite(v) for v in (history["train_loss"], history["val_macro_f1"],
+                                            history_img["train_loss"], history_img["val_macro_f1"], *f1.values()))
     missing = {stage: [c for c in need if launches[stage].get(c, 0) == 0] for stage, need in DISK_KERNELS.items()}
     missing = {k: v for k, v in missing.items() if v}
     disk = {
@@ -1783,7 +1874,8 @@ def disk_phases(args, smi, results, stats) -> None:
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         # the process's peak since it started (earlier phases included)
         "process_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-        "train": history, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
+        "train": history, "train_image": history_img, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
+        "from_gt": from_gt,
         "l2_launches_per_scan": launches["instance-labels"]["fps.fps"] / n_scans,
         "launches": {stage: {c: n for c, n in d.items() if n} for stage, d in launches.items()},
         "finite": finite,
@@ -1822,6 +1914,324 @@ def disk_phases(args, smi, results, stats) -> None:
     }
     emit({"phase": "timing_l2_fps", "card": smi, **stats["l2_row"]})
 
+    # row 2's cluster variant at the from-gt calls over 8192 points: each held
+    # exactly against its plain version on the card, then timed
+    err, k_ms, p_ms, b_ms, b_t = stats["errs"].get(FPS_LARGE_ROW[0], 0.0), [], [], [], [0.0, 0.0]
+    for xyz, n in big_calls:
+        d = max_abs_diff(fps.furthest_point_sample(xyz, n), fps.furthest_point_sample_plain(xyz, n))
+        err = max(err, d)
+        if d != 0.0:
+            fail(f"fps_large kernel disagrees with its plain version at {tuple(xyz.shape)}: max |diff| {d}")
+        k_ms.append(cuda_ms(lambda: fps.furthest_point_sample(xyz, n), 5))
+        p_ms.append(cuda_ms(lambda: fps.furthest_point_sample_plain(xyz, n), 1))
+        ms, by, _info = bound("furthest_point_sample", (xyz, n), {})
+        b_ms.append(ms)
+        b_t[0 if by == "bytes" else 1] += ms
+    stats["errs"][FPS_LARGE_ROW[0]] = err
+    stats["fps_large_row"] = {
+        "name": FPS_LARGE_ROW[0], "route": "cuda", "source": FPS_LARGE_ROW[2], "replaces": FPS_LARGE_ROW[3],
+        "launches": launches["instance-labels-from-gt"][FPS_LARGE_ROW[1]], "max_abs_err": err,
+        "ms": sum(k_ms) / len(k_ms), "plain_ms": sum(p_ms) / len(p_ms), "bound_ms": sum(b_ms) / len(b_ms),
+        "bound_by": "bytes" if b_t[0] >= b_t[1] else "operations", "library_ms": None,
+        "per": "call", "calls": len(big_calls), "shapes": sorted({str(tuple(x.shape)) for x, _n in big_calls}),
+    }
+    emit({"phase": "timing_from_gt_fps", "card": smi, **stats["fps_large_row"]})
+
+
+FPS_LARGE_ROW = ("fps_large", "fps.fps_large", "or4d_tpu_torch/ops/csrc/fps_cluster.cu",
+                 "or4d_tpu/ops/pallas_fps.py:200")
+SA1_SCALES = ((0.1, 16), (0.2, 32))
+
+
+def grid_cloud(N: int, spacing: float = 0.05) -> torch.Tensor:
+    """(1, N, 3): N points of a regular grid (exact distance ties
+    everywhere), index 0 off the origin, a few within |p|^2 <= 1e-3."""
+    import numpy as np
+
+    side = int(np.ceil(N ** (1 / 3)))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)[:N]
+    pts = ((g - side // 2) * spacing).astype(np.float32)
+    pts[[0, side * side // 2]] = pts[[side * side // 2, 0]]
+    return torch.from_numpy(pts)[None]
+
+
+def fps_large_phase(seed: int, smi: str, results: dict, stats: dict) -> None:
+    """fps_large: the cluster FPS (``fps_cluster.cu``, N > 8192) against its
+    plain version on the card, bit for bit, then timed beside it and its
+    bound: random clouds at N = 8193, GroupFree's (8, 20,000) -> 2048 and
+    (1, 200,000) -> 200 (the streamed tier), grids of exact ties at 20,000
+    and 100,000, and the counts and bounds variants at (8, 20,000) -> 2048
+    with SA1's scales. Each call must launch the cluster kernel once."""
+    from or4d_tpu_torch.ops import fps, launch_counts, reset_launch_counts
+
+    g = torch.Generator().manual_seed(seed + 7)
+    rnd = lambda B, N: (torch.randn(B, N, 3, generator=g) * 0.5).contiguous()
+    cases = [("8193", "fps", rnd(4, 8193), 512, None), ("groupfree", "fps", rnd(8, 20000), 2048, None),
+             ("streamed", "fps", rnd(1, 200000), 200, None), ("grid_20000", "fps", grid_cloud(20000), 512, None),
+             ("grid_100000", "fps", grid_cloud(100000), 200, None),
+             ("counts_20000", "counts", rnd(8, 20000), 2048, SA1_SCALES),
+             ("bounds_20000", "bounds", rnd(8, 20000), 2048, SA1_SCALES)]
+    kern = {"fps": lambda x, n, sc: fps.furthest_point_sample(x, n),
+            "counts": lambda x, n, sc: fps.furthest_point_sample_with_counts(x, n, tuple(r for r, _ in sc)),
+            "bounds": lambda x, n, sc: fps.furthest_point_sample_with_bounds(x, n, sc)}
+    plain = {"fps": lambda x, n, sc: fps.furthest_point_sample_plain(x, n),
+             "counts": lambda x, n, sc: fps.furthest_point_sample_plain(x, n, tuple(r for r, _ in sc)),
+             "bounds": lambda x, n, sc: fps.furthest_point_sample_with_bounds_plain(x, n, sc)}
+    bname = {"fps": "furthest_point_sample", "counts": "furthest_point_sample_with_counts",
+             "bounds": "furthest_point_sample_with_bounds"}
+    out = []
+    for label, variant, xyz, npoint, scales in cases:
+        xyz = xyz.cuda()
+        reset_launch_counts()
+        got = kern[variant](xyz, npoint, scales)
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        counter = "fps.fps_large" + ("" if variant == "fps" else f"_{variant}")
+        want = plain[variant](xyz, npoint, scales)
+        d = max_abs_diff(got, want)
+        idx = got[0] if isinstance(got, tuple) else got
+        distinct = min(len(torch.unique(row)) for row in idx)
+        entry = {"card": smi, "case": label, "variant": variant, "shape": str(tuple(xyz.shape)), "npoint": npoint,
+                 "plan": str(fps.cluster_plan(xyz.shape[1])), "max_abs_err": d, "launches": launched[counter],
+                 "distinct_min": distinct}
+        emit({"phase": "check_fps_large", **entry})
+        if d != 0.0 or launched[counter] != 1 or distinct != npoint:
+            fail(f"fps_large {label}: kernel vs plain max |diff| {d}, launches {launched[counter]}, "
+                 f"distinct samples {distinct} of {npoint}")
+        args = (xyz, npoint) + ((tuple(r for r, _ in scales) if variant == "counts" else scales,) if scales else ())
+        b_ms, b_by, info = bound(bname[variant], args, {})
+        k_ms = cuda_ms(lambda: kern[variant](xyz, npoint, scales), 3)
+        p_ms = cuda_ms(lambda: plain[variant](xyz, npoint, scales), 1)
+        entry.update({"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+                      "us_per_step": 1e3 * k_ms / npoint, **info})
+        out.append(entry)
+        emit({"phase": "timing_fps_large", **entry})
+        stats["errs"]["fps_large"] = max(stats["errs"].get("fps_large", 0.0), d)
+        del got, want, xyz
+    results["fps_large"] = out
+    torch.cuda.empty_cache()
+
+
+def largest_batch_phase(seed: int, smi: str, remat: bool, results: dict | None = None) -> dict:
+    """The S=8 float32 ``no_gt`` train step (``train_raw`` as the config
+    sets it) at the config's largest batch: 12 objects and 132 edges in
+    every scene, 96 object and 1056 edge rows. Three steps; peak memory
+    (``max_memory_allocated``), step ms (host clock around synchronised
+    steps, the last two), and with ``remat`` off the ten largest tensors
+    held for the backward (saved-tensor hooks) and the layers that hold
+    them. Nothing here catches an out-of-memory error."""
+    import dataclasses
+
+    from or4d_tpu_torch.config import NO_GT, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    ds = DatasetConfig()
+    samples = make_scene_samples(8, seed=seed + 300, n_objects=ds.max_objects, ds=ds, points_per_obj=2000)
+    b8 = SceneBatch.stack(samples)
+    rows = (int(b8.obj_mask.sum()), int(b8.edge_mask.sum()))
+    if rows != (8 * ds.max_objects, 8 * ds.max_edges):
+        fail(f"largest batch: {rows} rows, not {(8 * ds.max_objects, 8 * ds.max_edges)}")
+    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
+    cfg = dataclasses.replace(NO_GT, tpu=dataclasses.replace(NO_GT.tpu, remat=remat))
+    tr = Trainer(cfg, DEFAULT_VOCAB, *weights, device="cuda", seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    if not remat:
+        # every tensor saved for the backward of the first step, by size,
+        # with the module whose forward saved it; reported when the
+        # backward starts, before it may run out of memory
+        from torch.autograd.graph import saved_tensors_hooks
+
+        where = []
+        hooks = [m.register_forward_pre_hook(lambda mod, _a, n=n: where.append(n)) for n, m in tr.model.named_modules()]
+        orig_backward = torch.Tensor.backward
+
+        def pack(t):
+            held.append((t.numel() * t.element_size(), tuple(t.shape), str(t.dtype), where[-1] if where else ""))
+            return t
+
+        def backward(t, *a, **k):
+            top = sorted(set(held), reverse=True)[:10]
+            emit({"phase": "largest_batch_saved", "card": smi, "saved_bytes_total": sum(b for b, *_ in held),
+                  "forward_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                  "saved_top10": [{"bytes": b, "shape": str(sh), "dtype": d, "module": w} for b, sh, d, w in top]})
+            return orig_backward(t, *a, **k)
+
+        torch.Tensor.backward = backward
+        try:
+            with saved_tensors_hooks(pack, lambda t: t):
+                losses = [tr.train_step(b8, gen)]
+        finally:
+            torch.Tensor.backward = orig_backward
+            for h in hooks:
+                h.remove()
+    else:
+        losses = [tr.train_step(b8, gen)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [tr.train_step(b8, gen) for _ in range(2)]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 2
+    entry = {"card": smi, "remat": remat, "scenes": 8, "dtype": "float32", "train_raw": cfg.tpu.train_raw,
+             "object_rows": rows[0], "edge_rows": rows[1], "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "step_ms": step_ms, "losses": [float(l["loss"]) for l in losses]}
+    emit({"phase": "largest_batch", **entry})
+    if not all(math.isfinite(x) for x in entry["losses"]):
+        fail(f"largest batch: non-finite losses {entry['losses']}")
+    if results is not None:
+        results.setdefault("largest_batch", []).append(entry)
+    del tr, b8
+    torch.cuda.empty_cache()
+    return entry
+
+
+def remat_phases(seed: int, smi: str, results: dict) -> None:
+    """largest_batch with ``remat`` (the repaired step; fatal if it fails),
+    then ``remat_equal``: one S=8 float32 step at the train phase's batch
+    (96 object and 640 edge rows, which fits either way) with ``remat`` off
+    and on, from the same weights and draws: losses within 1e-4 and every
+    gradient within 1e-3 of the model's largest (the stated card-side
+    tolerance; recomputation replays the same kernels, so equal is
+    expected), with each side's peak memory and step ms."""
+    import dataclasses
+
+    from or4d_tpu_torch.config import NO_GT, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    largest_batch_phase(seed, smi, True, results)
+    samples = make_scene_samples(8, seed=seed + 100, n_objects=9, ds=DatasetConfig(), points_per_obj=2000)
+    b8 = SceneBatch.stack(samples)
+    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
+    side = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(NO_GT, tpu=dataclasses.replace(NO_GT.tpu, remat=remat))
+        tr = Trainer(cfg, DEFAULT_VOCAB, *weights, device="cuda", seed=seed + 5)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        parts = tr.train_step(b8, torch.Generator().manual_seed(seed + 9))
+        torch.cuda.synchronize()
+        side[remat] = {"ms": 1e3 * (time.perf_counter() - t0), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "loss": float(parts["loss"]),
+                       "grads": {n: q.grad.detach().cpu() for n, q in tr.model.named_parameters() if q.grad is not None}}
+        del tr
+    scale = max(float(g.abs().max()) for g in side[False]["grads"].values())
+    g_diff = max(float((side[True]["grads"][n] - g).abs().max()) for n, g in side[False]["grads"].items())
+    entry = {"card": smi, "object_rows": 96, "edge_rows": 640, "loss_diff": abs(side[True]["loss"] - side[False]["loss"]),
+             "grad_max_abs_diff": g_diff, "grad_scale": scale,
+             **{f"{k}_{'remat' if r else 'plain'}": side[r][k] for r in side for k in ("ms", "peak_mem_bytes")}}
+    results["remat_equal"] = entry
+    emit({"phase": "remat_equal", **entry})
+    if entry["loss_diff"] > 1e-4 or g_diff > 1e-3 * scale:
+        fail(f"remat changes the step: loss {entry['loss_diff']}, gradients {g_diff} of {scale}")
+    torch.cuda.empty_cache()
+
+
+def image_phase(seed: int, smi: str, results: dict, eval_samples) -> None:
+    """image: the ``no_gt_image`` (float32) train step at S=8 on 456 x 456
+    frames (48 trunk images a step; 9 objects a scene), three steps: step
+    ms, scenes/s, peak memory, the SGPN kernels' counters (they must
+    rise); then an S=64 eval batch (the eval phase's pair-shared scenes with
+    frames): batch ms, scenes/s, peak; the image branch alone on each
+    batch's frames (CUDA events) beside the whole; then the card's
+    embedding of one scene against the CPU's on the same weights and
+    frames, within 1e-4 of its largest value (TF32 off on both sides)."""
+    import numpy as np
+
+    from or4d_tpu_torch.config import NO_GT_IMAGE, DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.data.weights import sample_counts, weights_from_counts
+    from or4d_tpu_torch.models.efficientnet import ImageBranch
+    from or4d_tpu_torch.ops import launch_counts, reset_launch_counts
+    from or4d_tpu_torch.train.loop import Trainer
+
+    size = NO_GT_IMAGE.model.image_size
+    t0 = time.perf_counter()
+    samples = make_scene_samples(8, seed=seed + 500, n_objects=9, ds=DatasetConfig(), points_per_obj=2000,
+                                 image_size=size)
+    data_s = time.perf_counter() - t0
+    weights = weights_from_counts(DEFAULT_VOCAB, *sample_counts(DEFAULT_VOCAB, samples))
+    tr = Trainer(NO_GT_IMAGE, DEFAULT_VOCAB, *weights, device="cuda", seed=seed)
+    b8 = SceneBatch.stack(samples)
+    gen = torch.Generator().manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [tr.train_step(b8, gen)]
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    t0 = time.perf_counter()
+    losses += [tr.train_step(b8, gen) for _ in range(2)]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 2
+    train_peak = torch.cuda.max_memory_allocated()
+    images8 = torch.from_numpy(b8.images).cuda()
+    with torch.no_grad():
+        trunk8_ms = cuda_ms(lambda: tr.model.image_branch(images8), 3)
+    train = {"scenes": 8, "images": 48, "image_size": size, "dtype": "float32", "host_data_seconds": data_s,
+             "step_ms": step_ms, "scenes_per_s": 8 / (step_ms / 1e3), "peak_mem_bytes": train_peak,
+             "image_branch_ms": trunk8_ms, "rest_ms": step_ms - trunk8_ms,
+             "losses": [float(l["loss"]) for l in losses], "launches": {k: v for k, v in launched.items() if v}}
+    emit({"phase": "image_train", "card": smi, **train})
+    need = ("fps.fps_bounds", "fps.fps", "group_raw.fwd", "group_raw.bwd", "group.fwd", "group.bwd")
+    if [c for c in need if launched[c] == 0] or not all(math.isfinite(x) for x in train["losses"]):
+        fail(f"no_gt_image train step: launches {launched}, losses {train['losses']}")
+    del images8
+
+    rng = np.random.default_rng(seed + 600)
+    for smp in eval_samples:
+        smp.images = rng.standard_normal((6, size, size, 3), dtype=np.float32)
+    bS = SceneBatch.stack(eval_samples)
+    for smp in eval_samples:
+        smp.images = None
+    S = bS.num_scenes
+    pack = SlotPack.build(bS, paired=True).to("cuda")
+    bS = bS.to("cuda")
+    model = tr.model.eval()
+    with torch.no_grad():
+        model(bS, pack)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model(bS, pack)
+        torch.cuda.synchronize()
+        batch_ms = 1e3 * (time.perf_counter() - t0)
+        eval_peak = torch.cuda.max_memory_allocated()
+        trunk_ms = cuda_ms(lambda: model.image_branch(bS.images), 2)
+        cpu = ImageBranch(device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.image_branch.state_dict().items()})
+        x = bS.images[:1]
+        got = model.image_branch(x).cpu()
+        t0 = time.perf_counter()
+        want = cpu(x.cpu())
+        cpu_s = time.perf_counter() - t0
+    d = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ev = {"scenes": S, "images": 6 * S, "dtype": "float32", "batch_ms": batch_ms, "scenes_per_s": S / (batch_ms / 1e3),
+          "peak_mem_bytes": eval_peak, "image_branch_ms": trunk_ms, "rest_ms": batch_ms - trunk_ms,
+          "embedding_card_vs_cpu_max_abs_diff": d, "embedding_max_abs": scale, "cpu_reference_seconds": cpu_s,
+          "finite": bool(torch.isfinite(out.rel_logprobs).all())}
+    emit({"phase": "image_eval", "card": smi, **ev})
+    results["image"] = {"train": train, "eval": ev}
+    if not ev["finite"] or d > 1e-4 * scale:
+        fail(f"image branch: card vs CPU embedding max |diff| {d} of {scale}, finite {ev['finite']}")
+    del tr, model, bS, pack, out
+    torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1829,12 +2239,20 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", type=int, default=64, help="timing batch (bench.py default 64)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bounds-timing", action="store_true", help="time the bounds pre-pass alone (bounds_timing)")
+    ap.add_argument("--largest-batch", action="store_true",
+                    help="only the S=8 step at the largest batch with remat off (largest_batch_phase)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the port on the card", file=sys.stderr)
         return 1
     if args.bounds_timing:
         bounds_timing(args.seed)
+        return 0
+    if args.largest_batch:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smi = nvidia_smi_line()
+        emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi, "torch": torch.__version__})
+        largest_batch_phase(args.seed, smi, False)
         return 0
     from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
     from or4d_tpu_torch.infer import predict_relations
@@ -1998,7 +2416,11 @@ def main(argv=None) -> int:
 
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_t": bound_t, "library_ms": {}}
+    fps_large_phase(args.seed, smi, results, stats)
     train_phases(args, rec, smi, results, stats)
+    remat_phases(args.seed, smi, results)
+    image_phase(args.seed, smi, results, samples[:S])
+    del samples
     serving_phases(args, rec, smi, results, stats)
     disk_phases(args, smi, results, stats)
     rows = ROWS + TRAIN_ROWS + SERVING_ROWS + GATED_ROWS + BOUNDS_ROWS
@@ -2018,6 +2440,7 @@ def main(argv=None) -> int:
             "library_ms": stats["library_ms"].get(row),
         })
     kernels.append(stats["l2_row"])
+    kernels.append(stats["fps_large_row"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

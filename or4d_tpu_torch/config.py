@@ -102,6 +102,8 @@ class ModelConfig:
             full_image_embedding_size=m.get("FULL_IMAGE_EMBEDDING_SIZE", 768),
             image_model=m.get("IMAGE_MODEL", False),
             image_size=m.get("IMAGE_SIZE", 456),
+            # the reference configs' key (the JAX package's loader leaves it at False)
+            multi_rel_outputs=m.get("MULTI_REL_OUTPUTS", False),
             # TPU-build extension keys (absent from reference configs):
             # scaled-down encoder shapes for smoke/CI runs
             sa_npoints=tuple(m.get("sa_npoints", (512, 128))),
@@ -145,7 +147,7 @@ class DatasetConfig:
 @dataclasses.dataclass(frozen=True)
 class TPUConfig:
     """Execution knobs of the reference package that change results: the
-    scene batch, the compute dtype and ``train_raw``.
+    scene batch, the compute dtype, ``train_raw`` and ``remat``.
 
     ``train_raw`` picks SA1's train grouping on supports wider than one
     512-point chunk: True groups rows built from the raw [xyz|features]
@@ -160,6 +162,11 @@ class TPUConfig:
     scene_batch: int = 8           # scenes per global step (reference: 1)
     compute_dtype: str = "float32"  # "bfloat16" for the matmul-heavy path
     train_raw: bool = True         # or4d_tpu/config.py:172
+    # recompute the SA stages' BN/ReLU/dense chains in the backward instead
+    # of saving them (exact; the JAX package's selective remat,
+    # or4d_tpu/config.py:152): what lets an S=8 float32 step at the
+    # largest batch (12 objects, 132 edges a scene) fit on an 80 GB card
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

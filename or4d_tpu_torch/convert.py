@@ -4,7 +4,9 @@
 ({"params": ..., "batch_stats": ...}, leaves as numpy arrays) onto the
 port's ``state_dict`` names: module paths are the same
 (``obj_encoder/sa1/mlp_0/dense_0`` -> ``obj_encoder.sa1.mlp_0.dense_0``);
-a Dense ``kernel`` (in, out) becomes ``weight`` (out, in); a norm's
+a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a convolution's
+(k, k, in, out) (the image branch's; depthwise (k, k, 1, C)) becomes
+(out, in, k, k); a norm's
 ``scale``/``bias`` become ``weight``/``bias``; ``batch_stats`` ``mean``/``var``
 become ``running_mean``/``running_var``. Missing or extra keys and shape
 mismatches raise.
@@ -43,7 +45,7 @@ def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.
             key = ".".join(path[:-1] + (name,))
             arr = np.asarray(leaf, dtype=np.float32)
             if path[-1] == "kernel":
-                arr = arr.T
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
             if key in out:
                 raise KeyError(f"duplicate key {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))

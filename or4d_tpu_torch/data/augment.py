@@ -148,7 +148,11 @@ def augment_rel_crops(points, hand_points, is_contact, thres, passes) -> torch.T
 def augment_batch_with(batch: SceneBatch, draws: AugmentDraws) -> SceneBatch:
     """The batch (tensors) with augmented obj_points and rel_points, from
     the given draws (on the batch's device)."""
-    contact = torch.isin(batch.gt_rels, torch.tensor(CONTACT_IDS, device=batch.gt_rels.device))
+    ids = torch.tensor(CONTACT_IDS, device=batch.gt_rels.device)
+    if batch.gt_rels.dim() == 3:  # MULTI_REL multi-hot (S, E, R): any contact bit set
+        contact = batch.gt_rels[..., ids].amax(-1) > 0.5
+    else:
+        contact = torch.isin(batch.gt_rels, ids)
     new_obj = augment_crops(batch.obj_points, draws.obj)
     new_rel = augment_rel_crops(batch.rel_points, batch.rel_hand_points, contact, draws.rel_thres, draws.rel)
     sel = draws.apply[:, None, None, None]

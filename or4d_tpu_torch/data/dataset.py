@@ -19,7 +19,10 @@ own virtual-object trick, dataset_utils.py:96-115, generalized) unless
 
 The sample cache's default base directory is the port's own
 (``{tempdir}/or4d_torch_cache``), so the port never reads a sample the JAX
-package wrote. The image branch (``IMAGE_INPUT == "full"``) is not ported.
+package wrote. With ``IMAGE_INPUT == "full"`` each sample carries its six
+camera frames (:mod:`or4d_tpu_torch.data.images`), loaded after the cache
+fetch as the reference does; MULTI_REL_OUTPUTS samples carry multi-hot
+``gt_rels``.
 """
 
 from __future__ import annotations
@@ -118,8 +121,6 @@ class ORDataset:
         synthetic_scans_per_take: int = 32,
         pair_shared: bool | None = None,
     ):
-        if cfg.image_input == "full":
-            raise NotImplementedError("IMAGE_INPUT 'full' (the image branch) is not ported yet")
         self.cfg = cfg
         self.ds: DatasetConfig = cfg.dataset
         self.split = split
@@ -226,6 +227,26 @@ class ORDataset:
             self._human_joints_cache[take_idx] = ingest.load_human_joints(self.data_root, take_idx, from_gt=True)
         return self._human_joints_cache[take_idx]
 
+    def _attach_images(self, sample: SceneSample, scan: dict) -> SceneSample:
+        """IMAGE_INPUT == 'full': the six-camera stack rides outside the npz
+        cache, loaded per access like the reference (or_dataset.py:128-129
+        adds ``full_image`` after the cached sample is fetched). A take
+        without exported colour frames gets the JAX package's deterministic
+        random stack (the same numpy draw), so the multimodal path runs
+        end to end on synthetic data."""
+        if self.cfg.image_input != "full":
+            return sample
+        from or4d_tpu_torch.data import images as img_mod
+
+        size = self.cfg.model.image_size
+        if img_mod.has_images(self.data_root, scan["take_idx"]):
+            sample.images = img_mod.load_full_image_data(self.data_root, scan["take_idx"], scan["scan"],
+                                                         image_size=size).numpy()
+        else:
+            rng = np.random.default_rng(zlib.crc32(f"img_{sample.scan_id}".encode()))
+            sample.images = rng.normal(size=(img_mod.NUM_CAMERAS, size, size, 3)).astype(np.float32)
+        return sample
+
     def sample(self, index: int, points_per_obj: int = 3000) -> SceneSample:
         scan = self.scans[index]
         # scan ids carry the split index suffix like the reference
@@ -237,12 +258,13 @@ class ORDataset:
         if cache_path.exists():
             with np.load(cache_path, allow_pickle=True) as data:
                 meta = data["meta"].item()
-                return SceneSample(
+                cached = SceneSample(
                     **{k: data[k] for k in _CACHED_FIELDS},
                     scan_id=meta["scan_id"],
                     take_idx=meta["take_idx"],
                     slot_names=tuple(meta["slot_names"]),
                 )
+            return self._attach_images(cached, scan)
         # stable across processes (hash() is PYTHONHASHSEED-salted) so cached
         # samples are reproducible
         rng = np.random.default_rng(zlib.crc32(scan_id.encode()))
@@ -259,14 +281,14 @@ class ORDataset:
         sample = prepare_scene(
             points, instances, objs, rels, self.vocab, self.ds, rng,
             hand_locations=hands, scan_id=scan_id, take_idx=scan["take_idx"],
-            pair_shared=self.pair_shared,
+            pair_shared=self.pair_shared, multi_rel=self.cfg.model.multi_rel_outputs,
         )
         np.savez_compressed(
             cache_path,
             **{k: getattr(sample, k) for k in _CACHED_FIELDS},
             meta={"scan_id": sample.scan_id, "take_idx": sample.take_idx, "slot_names": list(sample.slot_names)},
         )
-        return sample
+        return self._attach_images(sample, scan)
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0, limit: int | None = None):
         """Yield SceneBatches of ``batch_size`` scenes (last batch smaller)."""

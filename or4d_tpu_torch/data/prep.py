@@ -94,6 +94,7 @@ def prepare_scene(
     take_idx: int = 0,
     bbox_padding: float = 0.2,
     pair_shared: bool = False,
+    multi_rel: bool = False,
 ) -> SceneSample:
     """Build a padded SceneSample from a labeled scene cloud.
 
@@ -111,7 +112,11 @@ def prepare_scene(
     lets the eval path share FPS/ball-query/selection work across the two
     directions of a pair (models/pointnet2.py paired path).
 
-    MULTI_REL_OUTPUTS (multi-hot gt_rels) is not ported yet.
+    ``multi_rel``: MULTI_REL_OUTPUTS mode — gt_rels becomes an (E, R) float32
+    multi-hot (reference data_preparation_utils.py:141-190: all-zero default,
+    every relation of an edge set to 1, accumulating instead of the
+    single-label branch's last-write-wins) for the sigmoid relation head and
+    its BCE loss.
     """
     O, E = ds.max_objects, ds.max_edges
     Po, Pr = ds.num_points_objects, ds.num_points_relation
@@ -141,8 +146,11 @@ def prepare_scene(
         gt_class[s] = vocab.class_index(name)
         obj_mask[s] = True
 
-    # GT adjacency, default 'none' (data_preparation_utils.py:139-160)
+    # GT adjacency, default 'none' (data_preparation_utils.py:139-160);
+    # multi_rel: (n, n, R) multi-hot with all-zero default (:141-158)
     id_to_slot = {inst: s for s, inst in enumerate(slot_ids)}
+    R = vocab.num_relations
+    adj_multi = np.zeros((n, n, R), np.float32)
     adj = np.full((n, n), vocab.none_index, np.int32)
     for r in rel_list:
         if r[0] not in id_to_slot or r[1] not in id_to_slot:
@@ -150,9 +158,13 @@ def prepare_scene(
         if r[3] not in vocab.relation_names:
             continue
         adj[id_to_slot[r[0]], id_to_slot[r[1]]] = vocab.relation_index(r[3])
+        adj_multi[id_to_slot[r[0]], id_to_slot[r[1]], vocab.relation_index(r[3])] = 1.0
 
     edge_index = np.zeros((E, 2), np.int32)
-    gt_rels = np.full((E,), vocab.none_index, np.int32)
+    if multi_rel:
+        gt_rels = np.zeros((E, R), np.float32)
+    else:
+        gt_rels = np.full((E,), vocab.none_index, np.int32)
     rel_onehot = np.zeros((E, 12), np.float32)
     rel_points = np.zeros((E, Pr, 7), np.float32)
     rel_hand_points = np.zeros((E, 2, 3), np.float32)
@@ -179,7 +191,7 @@ def prepare_scene(
             if e >= E:
                 raise ValueError(f"scene has more than max_edges={E} edges")
             edge_index[e] = (a, b)
-            gt_rels[e] = adj[a, b]
+            gt_rels[e] = adj_multi[a, b] if multi_rel else adj[a, b]
             rel_onehot[e, objname_to_type_index(names[a])] = 1.0
             rel_onehot[e, 6 + objname_to_type_index(names[b])] = 1.0
 

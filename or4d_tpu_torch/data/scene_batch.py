@@ -25,9 +25,11 @@ class SceneSample:
       rel_onehot   (E, 12)     subject/object coarse-type one-hots, late-fused
       gt_class     (O,)        object class ids; 0 on padding
       gt_rels      (E,)        relation ids; none_index on padding
+                   (E, R)      multi-hot float32 when MULTI_REL_OUTPUTS
       obj_mask     (O,)        bool
       edge_mask    (E,)        bool
       rel_hand_points (E, 2, 3) wrist locations in the rel crop frame
+      images       (6, H, W, 3) float32 camera frames when IMAGE_INPUT == "full"
     """
 
     obj_points: np.ndarray
@@ -43,6 +45,7 @@ class SceneSample:
     take_idx: int = 0
     # slot -> object name, for the scan_relations JSON
     slot_names: tuple[str, ...] = ()
+    images: Any = None
 
 
 # array fields stacked into the batch, in order
@@ -50,6 +53,10 @@ _ARRAY_FIELDS = (
     "obj_points", "rel_points", "edge_index", "rel_onehot",
     "gt_class", "gt_rels", "obj_mask", "edge_mask", "rel_hand_points",
 )
+
+
+def _np(a: Any) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -67,7 +74,8 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
 @dataclasses.dataclass
 class SceneBatch:
     """A stack of S padded scenes. Every array gains a leading scene axis;
-    metadata (scan ids, slot names) stays on the host."""
+    metadata (scan ids, slot names) stays on the host. ``images`` (S, 6, H,
+    W, 3) float32, or None without the image branch."""
 
     obj_points: Any
     rel_points: Any
@@ -78,6 +86,7 @@ class SceneBatch:
     obj_mask: Any
     edge_mask: Any
     rel_hand_points: Any
+    images: Any = None
     scan_ids: tuple[str, ...] = ()
     take_idxs: tuple[int, ...] = ()
     slot_names: tuple[tuple[str, ...], ...] = ()
@@ -85,26 +94,43 @@ class SceneBatch:
     @classmethod
     def stack(cls, samples: list[SceneSample]) -> "SceneBatch":
         arrays = {f: np.stack([getattr(s, f) for s in samples]) for f in _ARRAY_FIELDS}
+        images = None
+        if samples[0].images is not None:
+            images = np.stack([_np(s.images) for s in samples])
         return cls(
             **arrays,
+            images=images,
             scan_ids=tuple(s.scan_id for s in samples),
             take_idxs=tuple(s.take_idx for s in samples),
             slot_names=tuple(s.slot_names for s in samples),
         )
 
+    @property
+    def num_scenes(self) -> int:
+        return self.obj_points.shape[0]
+
+    def pad_scenes(self, multiple: int) -> "SceneBatch":
+        """The scene axis padded to a multiple with zero scenes (masks all
+        False, images zero), which the masked loss, BN and metrics ignore."""
+        b = self.numpy()
+        pad = (-b.num_scenes) % multiple
+        if pad == 0:
+            return b
+        grow = lambda a: np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
+        return dataclasses.replace(b, **{f: grow(getattr(b, f)) for f in _ARRAY_FIELDS},
+                                   images=None if b.images is None else grow(b.images))
+
     def to(self, device: str | torch.device) -> "SceneBatch":
         """The same batch with every array a tensor on ``device``."""
         device = torch.device(device)
         arrays = {f: _to_tensor(getattr(self, f), device) for f in _ARRAY_FIELDS}
-        return dataclasses.replace(self, **arrays)
+        images = None if self.images is None else _to_tensor(self.images, device)
+        return dataclasses.replace(self, **arrays, images=images)
 
     def numpy(self) -> "SceneBatch":
         """The same batch with every array a host numpy array."""
-        arrays = {}
-        for f in _ARRAY_FIELDS:
-            a = getattr(self, f)
-            arrays[f] = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-        return dataclasses.replace(self, **arrays)
+        arrays = {f: _np(getattr(self, f)) for f in _ARRAY_FIELDS}
+        return dataclasses.replace(self, **arrays, images=None if self.images is None else _np(self.images))
 
 
 def _pair_slots(edge_index: np.ndarray, edge_mask: np.ndarray, s: int) -> dict[tuple[int, int], int]:

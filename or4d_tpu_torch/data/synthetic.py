@@ -94,16 +94,23 @@ def make_scene_sample(
     take_idx: int = 1,
     scan_idx: int = 0,
     pair_shared: bool = False,
+    multi_rel: bool = False,
+    image_size: int | None = None,
 ) -> SceneSample:
+    """``image_size``: the sample carries six random normal camera frames of
+    that side (drawn after the scene, from the same generator)."""
     ds = ds or DatasetConfig()
     vocab = vocab or DEFAULT_VOCAB
     rng = np.random.default_rng(seed)
     points, instances, objs, rels, hands = make_raw_scene(rng, n_objects, points_per_obj)
-    return prepare_scene(
+    sample = prepare_scene(
         points, instances, objs, rels, vocab, ds, rng,
         hand_locations=hands, scan_id=f"{take_idx}_{scan_idx:06d}", take_idx=take_idx,
-        pair_shared=pair_shared,
+        pair_shared=pair_shared, multi_rel=multi_rel,
     )
+    if image_size:
+        sample.images = rng.standard_normal((6, image_size, image_size, 3), dtype=np.float32)
+    return sample
 
 
 def make_scene_samples(num_scenes: int = 2, seed: int = 0, n_objects: int = 6, ds: DatasetConfig | None = None, **kw) -> list[SceneSample]:

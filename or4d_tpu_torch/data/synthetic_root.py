@@ -19,6 +19,14 @@ heading sign flipped for the two classes whose sign L2 flips back) and the
 poses the humans' true skeletons, so the L2 stage's pred labels
 (``instance-labels``) resemble the GT labels. Every scan lists the virtual
 ``instrument`` too. Deterministic in ``seed``.
+
+:func:`add_camera_frames` gives every take of a root the six cameras'
+colour frames and the frames list the image branch reads
+(``colorimage/camera0{c}_colorimage-{i}.jpg``,
+``timestamp_to_pcd_and_frames_list.json``), copied from a directory of
+jpgs; :func:`densify_object_scan` rewrites a registered object scan
+(``object_scans/{name}/{take}.ply``) with more points, for clouds over the
+8192 points of the single-block FPS kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from pathlib import Path
 import numpy as np
 
 from or4d_tpu_torch.config import LIMBS, OBJECT_LABEL_MAP, TAKE_SPLIT
-from or4d_tpu_torch.data.pcd_io import write_pcd
+from or4d_tpu_torch.data.pcd_io import read_ply, write_pcd
 
 FURNITURE = {  # name: (center, size (l, w, h)) in mm
     "anesthesia_equipment": ((-900.0, 500.0, 900.0), (600.0, 1000.0, 500.0)),
@@ -157,3 +165,47 @@ def write_data_root(root, seed: int = 0, scans_per_take: int = 2, n_staff: int =
         counts[split] = len(scans)
     return {"scans": counts, "points_per_scan": (4 + 1 + n_staff) * points_per_object + floor_points,
             "compressed": compressed}
+
+
+def add_camera_frames(root, frames_dir, scans_per_take: int = 2) -> int:
+    """Copy the jpgs of ``frames_dir`` (``camera0{c}_colorimage-{i}.jpg``)
+    into every take of ``root`` and write each take's frames list: scan k
+    (pcd index k) takes the k-th frame index found, cyclically. Returns the
+    number of takes."""
+    import shutil
+
+    frames_dir = Path(frames_dir)
+    indices = sorted({p.stem.split("-")[-1] for p in frames_dir.glob("camera01_colorimage-*.jpg")})
+    takes = sorted(int(p.name[len("export_holistic_take"):-len("_processed")])
+                   for p in Path(root).glob("export_holistic_take*_processed"))
+    for take in takes:
+        tdir = Path(root) / f"export_holistic_take{take}_processed"
+        (tdir / "colorimage").mkdir(exist_ok=True)
+        for jpg in frames_dir.glob("camera0*_colorimage-*.jpg"):
+            shutil.copyfile(jpg, tdir / "colorimage" / jpg.name)
+        entries = [[f"ts_{k:06d}", {"pcd": f"{k:06d}", **{f"color_{c}": indices[k % len(indices)]
+                                                          for c in range(1, 7)}}] for k in range(scans_per_take)]
+        (tdir / "timestamp_to_pcd_and_frames_list.json").write_text(json.dumps(entries))
+    return len(takes)
+
+
+def write_ply(path, xyz: np.ndarray) -> None:
+    """A binary little-endian PLY of (N, 3) float32 vertices, as the
+    release's registered object scans are."""
+    xyz = np.ascontiguousarray(xyz, "<f4")
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(xyz)}\nproperty float x\n"
+              "property float y\nproperty float z\nend_header\n")
+    Path(path).write_bytes(header.encode("ascii") + xyz.tobytes())
+
+
+def densify_object_scan(root, name: str, take: int, n_points: int, seed: int = 0) -> int:
+    """Rewrite ``object_scans/{name}/{take}.ply`` with ``n_points`` points:
+    the scan's own points, then copies of them moved by 0.5% of the scan's
+    extent (deterministic in ``seed``). Returns the old point count."""
+    path = Path(root) / "object_scans" / name / f"{take}.ply"
+    xyz = read_ply(path)[:, :3]
+    rng = np.random.default_rng(seed)
+    extra = xyz[rng.integers(0, len(xyz), n_points - len(xyz))]
+    extra = extra + rng.normal(scale=0.005 * float(np.ptp(xyz, axis=0).max()), size=extra.shape)
+    write_ply(path, np.concatenate([xyz, extra]).astype(np.float32))
+    return len(xyz)

@@ -3,6 +3,8 @@
 :func:`predict_relations` reproduces the JAX package's
 ``Trainer.predict_relations`` (or4d_tpu/train/loop.py:298-330): argmax over
 the relation log-probs, drop 'none', map slots to object names. A
+MULTI_REL_OUTPUTS model's head gives independent sigmoid probabilities:
+each relation above 0.5 is emitted (an edge may carry several or none). A
 pair-shared batch is packed with a pair plan, so the relation encoder runs
 once per unordered pair (``Trainer.eval_step``).
 
@@ -20,6 +22,7 @@ import json
 from collections.abc import Iterable
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack, is_pair_shared
@@ -38,15 +41,18 @@ def predict_relations(model: SGPN, batches: Iterable[SceneBatch], vocab: Vocab =
         batch = batch.numpy()
         pack = SlotPack.build(batch, paired=is_pair_shared(batch))
         out = model(batch.to(dev), pack.to(dev)).rel_logprobs.cpu().numpy()
-        preds = out.argmax(-1)
+        multi = model.multi_rel_outputs
+        preds = None if multi else out.argmax(-1)
         for s, scan_id in enumerate(batch.scan_ids):
             names = batch.slot_names[s]
             em, ei = batch.edge_mask[s], batch.edge_index[s]
             relations = []
             for e in range(len(em)):
-                if not em[e] or preds[s, e] == none_idx:
+                if not em[e]:
                     continue
-                relations.append((names[ei[e, 0]], vocab.relation_names[preds[s, e]], names[ei[e, 1]]))
+                for r in (np.nonzero(out[s, e] > 0.5)[0] if multi else [preds[s, e]]):
+                    if r != none_idx:
+                        relations.append((names[ei[e, 0]], vocab.relation_names[r], names[ei[e, 1]]))
             scan_relations[scan_id] = relations
     return scan_relations
 

@@ -51,6 +51,11 @@ class Dense(nn.Module):
         return nn.functional.linear(x.to(dt), self.weight.to(dt), b)
 
 
+# elements of one backward temporary of the train BN's chunked backward
+# (512 MB in float32)
+_BWD_CHUNK = 1 << 27
+
+
 class _MaskedBatchNormTrain(torch.autograd.Function):
     """Train-mode BN (+ optional ReLU) over every non-channel axis of x
     (B, ..., C) with a per-row mask (B,) or None, saving only its input: the
@@ -59,10 +64,17 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
 
     Returns (y in x's dtype, batch mean, biased var, count). Arithmetic as
     the JAX package: y = ((x - mean) * rsqrt(var + eps)) * weight + bias in
-    f32, then ReLU, then x's dtype."""
+    f32, then ReLU, then x's dtype.
+
+    ``chunked``: the backward works in row chunks of at most ``_BWD_CHUNK``
+    elements, two passes (the channel sums, then dx), so no temporary of
+    x's full size is made beside dx itself; slower (the normalized values
+    are made twice), it is what keeps the recomputing backward of
+    ``TPUConfig.remat`` at the largest batch inside the card. Otherwise one
+    pass over whole tensors."""
 
     @staticmethod
-    def forward(ctx, x, mask, weight, bias, eps, relu):
+    def forward(ctx, x, mask, weight, bias, eps, relu, chunked=False):
         B, C = x.shape[0], x.shape[-1]
         xf = x.float().reshape(B, -1, C)
         mb = torch.ones(B, device=x.device) if mask is None else mask.float().reshape(B)
@@ -75,7 +87,7 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
         if relu:
             y.relu_()
         ctx.save_for_backward(x, mb, weight, bias, mean, rstd, count)
-        ctx.relu = relu
+        ctx.relu, ctx.chunked = relu, chunked
         ctx.mark_non_differentiable(mean, var, count)
         return y.to(x.dtype).reshape(x.shape), mean, var, count
 
@@ -83,18 +95,35 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
     def backward(ctx, gy, _gmean, _gvar, _gcount):
         x, mb, weight, bias, mean, rstd, count = ctx.saved_tensors
         B, C = x.shape[0], x.shape[-1]
-        xhat = (x.float().reshape(B, -1, C) - mean).mul_(rstd)
-        g = gy.float().reshape(B, -1, C)
-        if ctx.relu:
-            g = g * (xhat * weight + bias > 0)
-        dw = (g * xhat).sum((0, 1))
-        db = g.sum((0, 1))
-        gx = g * weight
-        # mean and var see the valid rows only; every row sees them
-        G = gx.sum((0, 1))
-        H = (gx * xhat).sum((0, 1))
-        dx = gx.sub_(mb[:, None, None] * (xhat.mul_(H).add_(G)) / count).mul_(rstd)
-        return dx.to(x.dtype).reshape(x.shape), None, dw, db, None, None
+        xr, gr = x.reshape(B, -1, C), gy.reshape(B, -1, C)
+        step = max(1, _BWD_CHUNK // max(1, xr[0].numel())) if ctx.chunked else B
+
+        def chunk(lo):
+            xhat = (xr[lo:lo + step].float() - mean).mul_(rstd)
+            g = gr[lo:lo + step].float()
+            if ctx.relu:
+                g = g * (xhat * weight + bias > 0)
+            return xhat, g, g * weight  # g may be gy itself
+
+        def dx_of(lo, xhat, gx, G, H):
+            # mean and var see the valid rows only; every row sees them
+            return gx.sub_(mb[lo:lo + step, None, None] * (xhat.mul_(H).add_(G)) / count).mul_(rstd)
+
+        def sums(xhat, g, gx):
+            return torch.stack([(g * xhat).sum((0, 1)), g.sum((0, 1)), gx.sum((0, 1)), (gx * xhat).sum((0, 1))])
+
+        if step >= B:
+            xhat, g, gx = chunk(0)
+            dw, db, G, H = sums(xhat, g, gx).unbind(0)
+            dx = dx_of(0, xhat, gx, G, H)
+        else:
+            total = sum(sums(*chunk(lo)) for lo in range(0, B, step))
+            dw, db, G, H = total.unbind(0)
+            dx = torch.empty(xr.shape, dtype=x.dtype, device=x.device)
+            for lo in range(0, B, step):
+                xhat, _g, gx = chunk(lo)
+                dx[lo:lo + step] = dx_of(lo, xhat, gx, G, H)
+        return dx.to(x.dtype).reshape(x.shape), None, dw, db, None, None, None
 
 
 class MaskedBatchNorm(nn.Module):
@@ -113,17 +142,29 @@ class MaskedBatchNorm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(features, device=device))
             self.register_buffer("running_var", torch.ones(features, device=device))
 
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, count: torch.Tensor) -> None:
+        """``running = 0.9 * running + 0.1 * batch``, with the unbiased variance."""
+        with torch.no_grad():
+            unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None, train: bool = False,
-                relu: bool = False) -> torch.Tensor:
+                relu: bool = False, stats: list | None = None) -> torch.Tensor:
         """``mask``: per leading row (B,) in train mode with running
-        statistics; broadcastable to ``x.shape[:-1]`` otherwise."""
+        statistics; broadcastable to ``x.shape[:-1]`` otherwise. ``stats``
+        (train mode): the batch moments (mean, var, count) are appended to
+        it and the running statistics are left to the caller
+        (:meth:`update_running`), as a recomputed forward needs; that path
+        (``TPUConfig.remat``) also takes the row-chunked backward."""
         if self.track_running_stats and train:
-            y, mean, var, count = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps, relu)
-            with torch.no_grad():
-                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-                m = self.momentum
-                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            y, mean, var, count = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps, relu,
+                                                              stats is not None)
+            if stats is None:
+                self.update_running(mean, var, count)
+            else:
+                stats.append((mean, var, count))
             return y
         if self.track_running_stats:
             mean, var = self.running_mean, self.running_var

@@ -50,6 +50,7 @@ from collections.abc import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from or4d_tpu_torch.models.layers import Dense, MaskedBatchNorm, SharedMLP
 from or4d_tpu_torch.ops.ball_query_group import ball_query_group, ball_query_group_gated
@@ -98,13 +99,33 @@ class DelayedSharedMLP(nn.Module):
         return self.dense_0(x.to(self.dtype)).contiguous()
 
     def post(self, grouped: torch.Tensor, Bq: torch.Tensor, mask: torch.Tensor | None = None,
-             train: bool = False) -> torch.Tensor:
+             train: bool = False, stats: list | None = None) -> torch.Tensor:
         """BN/ReLU and the remaining layers on grouped layer-1 rows
-        (B, M, ns, C1) minus Bq (B, M, C1); ``mask`` (B,) rows."""
-        h = self.bn_0(grouped - Bq[:, :, None, :], mask, train=train, relu=True)
+        (B, M, ns, C1) minus Bq (B, M, C1); ``mask`` (B,) rows. ``stats``:
+        each train BN's batch moments go there instead of into its running
+        statistics (``MaskedBatchNorm.forward``)."""
+        h = self.bn_0(grouped - Bq[:, :, None, :], mask, train=train, relu=True, stats=stats)
         for i in range(1, len(self.channels)):
-            h = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(h), mask, train=train, relu=True)
+            h = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(h), mask, train=train, relu=True, stats=stats)
         return h
+
+    def post_pooled_remat(self, grouped: torch.Tensor, Bq: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """``post(...).amax(dim=2)`` in train mode under activation
+        checkpointing (``TPUConfig.remat``): only the grouped rows (the
+        grouping kernel's output) and Bq are saved, and the BN/ReLU/dense
+        chain is recomputed in the backward, the selective remat of the JAX
+        package's train step (or4d_tpu/train/loop.py:113-126). The running
+        statistics are updated once, from the forward's batch moments."""
+
+        def chain(g, bq):
+            stats = []
+            out = self.post(g, bq, mask, train=True, stats=stats).amax(dim=2)
+            return (out, *[t for st in stats for t in st])
+
+        out, *flat = checkpoint(chain, grouped, Bq, use_reentrant=False)
+        for i in range(len(self.channels)):
+            getattr(self, f"bn_{i}").update_running(*flat[3 * i:3 * i + 3])
+        return out
 
     def fused_eval_params(self):
         """(a0, b0, W1, a1, b1): both eval BNs folded to per-channel affines,
@@ -139,15 +160,18 @@ class SetAbstractionMSG(nn.Module):
     FPS and the ball query. ``train_raw`` picks the train grouping on
     supports wider than one chunk (see the module docstring); it is exact
     for parameter training only where the features are model inputs.
+    ``remat`` recomputes each scale's BN/ReLU/dense chain in the backward
+    (:meth:`DelayedSharedMLP.post_pooled_remat`).
     """
 
     def __init__(self, in_features: int, npoint: int, scales: Sequence[SAScale], dtype=torch.float32,
-                 device=None, generator=None, train_raw: bool = True):
+                 device=None, generator=None, train_raw: bool = True, remat: bool = False):
         super().__init__()
         self.npoint = npoint
         self.scales = tuple(scales)
         self.dtype = dtype
         self.train_raw = train_raw
+        self.remat = remat
         for si, sc in enumerate(self.scales):
             self.add_module(f"mlp_{si}", DelayedSharedMLP(in_features, sc.mlp, dtype, device, generator))
 
@@ -230,7 +254,8 @@ class SetAbstractionMSG(nn.Module):
                 g = ball_query_group_gated(xyz, new_xyz, sc.radius, sc.nsample, m.pre(xyz, features), needs[si])
             else:
                 g = ball_query_group(xyz, new_xyz, sc.radius, sc.nsample, m.pre(xyz, features))
-            outs.append(m.post(g, m.bq_term(new_xyz), mask, train=True).amax(dim=2))
+            Bq = m.bq_term(new_xyz)
+            outs.append(m.post_pooled_remat(g, Bq, mask) if self.remat else m.post(g, Bq, mask, train=True).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -263,23 +288,24 @@ class PointNet2MSGEncoder(nn.Module):
     and ``pc`` is not read (it may be None).
 
     ``train_raw`` is SA1's (its features are model inputs); SA2's features
-    carry gradients, so SA2 always groups from its layer-1 plane.
+    carry gradients, so SA2 always groups from its layer-1 plane. ``remat``
+    is both MSG stages' (``TPUConfig.remat``).
     """
 
     def __init__(self, input_dim: int = 6, out_size: int = 256, sa_npoints=(512, 128),
                  sa_nsamples=((16, 32), (32, 64)), dtype=torch.float32, device=None, generator=None,
-                 train_raw: bool = True):
+                 train_raw: bool = True, remat: bool = False):
         super().__init__()
         self.sa1 = SetAbstractionMSG(
             input_dim, sa_npoints[0],
             (SAScale(SA1_RADII[0], sa_nsamples[0][0], (64, 64)), SAScale(SA1_RADII[1], sa_nsamples[0][1], (64, 128))),
-            dtype, device, generator, train_raw=train_raw,
+            dtype, device, generator, train_raw=train_raw, remat=remat,
         )
         c1 = 64 + 128
         self.sa2 = SetAbstractionMSG(
             3 + c1, sa_npoints[1],
             (SAScale(SA2_RADII[0], sa_nsamples[1][0], (128, 128)), SAScale(SA2_RADII[1], sa_nsamples[1][1], (128, 128))),
-            dtype, device, generator, train_raw=False,
+            dtype, device, generator, train_raw=False, remat=remat,
         )
         self.sa3 = SetAbstractionAll(3 + 256, (256, out_size), dtype, device, generator)
 

@@ -5,7 +5,11 @@ Reference ``scene_graph_prediction_model.py:30-109``: PointNet++ MSG object
 encoder on (O, 4000, 6) crops and relation encoder on (E, 8000, 7) union
 crops -> 256-d each; TripletGCN (2 layers, hidden 512) over the fully
 connected scene graph; object head on GCN node features and relation head on
-GCN edge features with subject/object one-hot late fusion.
+GCN edge features with subject/object one-hot late fusion; the
+multimodal model (``no_gt_image``) fuses a 768-d scene embedding from a
+frozen EfficientNet-B5 over the six cameras into the relation head
+(:mod:`or4d_tpu_torch.models.efficientnet`), and MULTI_REL_OUTPUTS makes
+that head a sigmoid multi-label one trained with :func:`weighted_bce`.
 
 The model consumes a whole :class:`SceneBatch` (scenes stacked, objects and
 edges padded). A :class:`SlotPack` runs the encoders over the valid rows
@@ -38,7 +42,7 @@ from or4d_tpu_torch.models.triplet_gcn import TripletGCN
 @dataclasses.dataclass
 class SGPNOutputs:
     obj_logprobs: torch.Tensor  # (S, O, num_classes) float32
-    rel_logprobs: torch.Tensor  # (S, E, num_relations) float32
+    rel_logprobs: torch.Tensor  # (S, E, num_relations) float32; probabilities with multi_rel_outputs
     obj_features: torch.Tensor  # (S, O, D)
     rel_features: torch.Tensor  # (S, E, D)
 
@@ -48,13 +52,16 @@ class SGPN(nn.Module):
     when none is given) and moved to ``device`` (default ``cuda``; raises
     without a card unless ``device="cpu"``). ``train_raw`` picks both
     encoders' SA1 train grouping (``TPUConfig.train_raw``; see
-    :mod:`or4d_tpu_torch.models.pointnet2`)."""
+    :mod:`or4d_tpu_torch.models.pointnet2`). ``use_image`` adds the image
+    branch (``batch.images`` (S, 6, H, W, 3) then feeds the relation head);
+    ``multi_rel_outputs`` makes the relation head sigmoid multi-label."""
 
     def __init__(self, num_classes: int = 12, num_relations: int = 15, point_feature_size: int = 256,
                  edge_feature_size: int = 256, gcn_hidden: int = 512, gcn_layers: int = 2,
                  obj_pred_from_gcn: bool = True, compute_dtype=torch.float32, sa_npoints=(512, 128),
                  sa_nsamples=((16, 32), (32, 64)), device=None, generator: torch.Generator | None = None, seed: int = 0,
-                 train_raw: bool = True):
+                 train_raw: bool = True, remat: bool = False, use_image: bool = False,
+                 image_embedding_size: int = 768, multi_rel_outputs: bool = False):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -64,18 +71,24 @@ class SGPN(nn.Module):
         self.edge_feature_size = edge_feature_size
         self.obj_pred_from_gcn = obj_pred_from_gcn
         enc = dict(sa_npoints=tuple(sa_npoints), sa_nsamples=tuple(tuple(s) for s in sa_nsamples),
-                   dtype=compute_dtype, device=device, generator=generator, train_raw=train_raw)
+                   dtype=compute_dtype, device=device, generator=generator, train_raw=train_raw, remat=remat)
         # xyz + rgb object crops; xyz + rgb + subject/object mask relation crops
         self.obj_encoder = PointNet2MSGEncoder(6, point_feature_size, **enc)
         self.rel_encoder = PointNet2MSGEncoder(7, edge_feature_size, **enc)
         self.gcn = TripletGCN(gcn_layers, point_feature_size, edge_feature_size, gcn_hidden, device, generator)
         self.obj_predictor = ObjectClsHead(point_feature_size, num_classes, device, generator)
-        self.rel_predictor = RelationClsHead(edge_feature_size, num_relations, device=device, generator=generator)
+        self.use_image = use_image
+        self.multi_rel_outputs = multi_rel_outputs
+        self.rel_predictor = RelationClsHead(edge_feature_size, num_relations,
+                                             image_features=image_embedding_size if use_image else 0,
+                                             multi_label=multi_rel_outputs, device=device, generator=generator)
+        if use_image:
+            from or4d_tpu_torch.models.efficientnet import ImageBranch
+
+            self.image_branch = ImageBranch(image_embedding_size, device=device, generator=generator)
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig, num_classes: int, num_relations: int, **kw) -> "SGPN":
-        if cfg.image_input == "full" or cfg.model.multi_rel_outputs:
-            raise NotImplementedError("the image branch and MULTI_REL_OUTPUTS are not ported yet")
         return cls(
             num_classes=num_classes,
             num_relations=num_relations,
@@ -88,6 +101,10 @@ class SGPN(nn.Module):
             sa_npoints=tuple(cfg.model.sa_npoints),
             sa_nsamples=tuple(tuple(s) for s in cfg.model.sa_nsamples),
             train_raw=cfg.tpu.train_raw,
+            remat=cfg.tpu.remat,
+            use_image=cfg.image_input == "full",
+            image_embedding_size=cfg.model.full_image_embedding_size,
+            multi_rel_outputs=cfg.model.multi_rel_outputs,
             **kw,
         )
 
@@ -162,7 +179,8 @@ class SGPN(nn.Module):
                 if k not in keep:
                     keep[k] = draw_keep((S, n, head.fc2.weight.shape[0]), generator, obj_feat.device)
         obj_logprobs = self.obj_predictor(gcn_obj if self.obj_pred_from_gcn else obj_feat, train, keep.get("obj"))
-        rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot, train, keep.get("rel"))
+        image_embeddings = self.image_branch(batch.images) if self.use_image else None
+        rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot, train, keep.get("rel"), image_embeddings)
         return SGPNOutputs(
             obj_logprobs=obj_logprobs.float(),
             rel_logprobs=rel_logprobs.float(),
@@ -182,11 +200,28 @@ def weighted_nll(logprobs: torch.Tensor, targets: torch.Tensor, class_weights: t
     return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-12)
 
 
+def weighted_bce(probs: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """MULTI_REL_OUTPUTS loss: torch ``F.binary_cross_entropy(weight=w)``
+    over (S, E, R) sigmoid probabilities and multi-hot targets, per element
+    w[c] * BCE, averaged over the valid edges' elements; probabilities
+    clipped to [1e-7, 1 - 1e-7] (or4d_tpu/models/sgpn.py:271-282)."""
+    p = torch.clamp(probs.float(), 1e-7, 1.0 - 1e-7)
+    y = targets.float()
+    bce = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p)) * class_weights
+    m = mask.float()[..., None]
+    return (bce * m).sum() / torch.clamp(m.sum() * probs.shape[-1], min=1e-12)
+
+
 def sgpn_loss(outputs: SGPNOutputs, batch: SceneBatch, weights_obj: torch.Tensor, weights_rel: torch.Tensor,
               lambda_o: float = 1e-6):
     """(loss, {"loss_obj", "loss_rel", "loss"}): loss = lambda_o * obj NLL +
-    rel NLL (reference :139-141). MULTI_REL's weighted BCE is not ported."""
+    rel NLL (reference :139-141); the relation term is :func:`weighted_bce`
+    where ``gt_rels`` is a multi-hot (S, E, R) (MULTI_REL_OUTPUTS)."""
     loss_obj = weighted_nll(outputs.obj_logprobs, batch.gt_class, weights_obj, batch.obj_mask)
-    loss_rel = weighted_nll(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
+    if batch.gt_rels.dim() == outputs.rel_logprobs.dim():
+        loss_rel = weighted_bce(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
+    else:
+        loss_rel = weighted_nll(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
     loss = lambda_o * loss_obj + loss_rel
     return loss, {"loss_obj": loss_obj, "loss_rel": loss_rel, "loss": loss}

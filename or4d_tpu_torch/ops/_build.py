@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "or4d_tpu_torch_kernels"
-SOURCES = ("fps", "sa_group_mlp", "ball_query_group", "ball_query_multiscale", "serving_sa1_mlp",
+SOURCES = ("fps", "fps_cluster", "sa_group_mlp", "ball_query_group", "ball_query_multiscale", "serving_sa1_mlp",
            "ball_query_bounds")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,7 @@
-"""Furthest point sampling: the CUDA kernel ``csrc/fps.cu`` and its plain
-PyTorch version.
+"""Furthest point sampling: the CUDA kernels ``csrc/fps.cu`` (clouds of at
+most 8192 points, one block a cloud) and ``csrc/fps_cluster.cu`` (larger
+clouds, one thread-block cluster a cloud; :func:`cluster_plan`), and their
+plain PyTorch version.
 
 Replaces ``furthest_point_sample_pallas`` (or4d_tpu/ops/pallas_fps.py:200)
 and ``furthest_point_sample_with_counts`` (pallas_fps.py:156). What bounds
@@ -23,6 +25,7 @@ always launches the kernel, and a failed launch raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -32,11 +35,39 @@ from or4d_tpu_torch.ops.sa_group_mlp import counts_to_bounds
 CHUNK = 512  # scan-order chunk width of the hit counts
 _MAG_EPS = float(np.float32(1e-3))
 _MAX_RADII = 4
-_MAX_N = 8192  # 512 threads x 16 points in registers
+_MAX_N = 8192  # fps.cu: 512 threads x 16 points in registers; larger clouds run fps_cluster.cu
+_WARPS, _MAX_CLUSTER = 16, 8  # fps_cluster.cu: warps a CTA, CTAs a (portable) cluster
 
 # kernel launches, per variant: "fps" (no counts), "fps_counts" and
-# "fps_bounds" (the search bounds from the counts)
-LAUNCHES = {"fps": 0, "fps_counts": 0, "fps_bounds": 0}
+# "fps_bounds" (the search bounds from the counts) of fps.cu, and the same
+# three of fps_cluster.cu as "fps_large", "fps_large_counts" and
+# "fps_large_bounds"
+LAUNCHES = {"fps": 0, "fps_counts": 0, "fps_bounds": 0, "fps_large": 0, "fps_large_counts": 0, "fps_large_bounds": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """``fps_cluster.cu``'s launch for N > 8192 points: ``ctas`` CTAs a
+    cloud (one cluster), each owning ``share`` 512-point chunks with
+    ``warps`` warps; ``streamed`` clouds (N > 65,536) are read from device
+    memory every step, with the running minima in a (B, N) scratch."""
+
+    ctas: int
+    share: int
+    warps: int
+    streamed: bool
+
+
+def cluster_plan(N: int) -> ClusterPlan:
+    """The cluster kernel's plan (its ``plan_for``, which refuses another)."""
+    if N <= _MAX_N:
+        raise ValueError(f"the cluster FPS kernel takes N > {_MAX_N}, got {N}")
+    nch = -(-N // CHUNK)
+    if N <= CHUNK * _WARPS * _MAX_CLUSTER:
+        ctas = -(-nch // _WARPS)
+        share = -(-nch // ctas)
+        return ClusterPlan(ctas, share, share, False)
+    return ClusterPlan(_MAX_CLUSTER, -(-nch // _MAX_CLUSTER), _WARPS, True)
 
 
 def _r2(radius: float) -> float:
@@ -87,16 +118,20 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int, radii: tuple[flo
 
 
 def _launch(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...], nsamples: tuple[int, ...] | None = None):
-    """The kernel: idx, plus per radius the counts, or with ``nsamples``
-    the bounds need (B, npoint) int32."""
+    """The kernel (``fps.cu``, or ``fps_cluster.cu`` over 8192 points): idx,
+    plus per radius the counts, or with ``nsamples`` the bounds need
+    (B, npoint) int32."""
     from or4d_tpu_torch.ops._build import library
 
     B, N, _ = xyz.shape
-    if N > _MAX_N:
-        raise ValueError(f"the FPS kernel takes at most {_MAX_N} points per cloud, got {N}")
-    fn = library("fps").or4d_fps
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, I, I, I, P, P, P, P, P, P]
+    large = N > _MAX_N
+    if large:
+        fn = library("fps_cluster").or4d_fps_cluster
+        fn.argtypes = [P, I, I, I, I, P, P, P, P, P, I, I, I, P, P, P]
+    else:
+        fn = library("fps").or4d_fps
+        fn.argtypes = [P, I, I, I, I, P, P, P, P, P, P]
     fn.restype = I
     dev = xyz.device
     idx = torch.empty(B, npoint, dtype=torch.int32, device=dev)
@@ -108,15 +143,22 @@ def _launch(xyz: torch.Tensor, npoint: int, radii: tuple[float, ...], nsamples: 
     r2 = (ctypes.c_float * _MAX_RADII)(*[_r2(r) for r in radii])
     ns = (ctypes.c_int * _MAX_RADII)(*(nsamples or ()))
     need_ptrs = (P * _MAX_RADII)(*[n.data_ptr() for n in need]) if bounds else None
+    args = [xyz.data_ptr(), B, N, npoint, len(radii), ctypes.cast(r2, P), ctypes.cast(ns, P), idx.data_ptr(),
+            None if counts is None else counts.data_ptr(), None if need_ptrs is None else ctypes.cast(need_ptrs, P)]
+    if large:
+        plan = cluster_plan(N)
+        # the streamed running minima and the bounds' chunk counts by step parity
+        md = torch.empty(B, N, dtype=torch.float32, device=dev) if plan.streamed else None
+        cnt = torch.empty(B, 2, len(radii), nch, dtype=torch.int32, device=dev) if bounds else None
+        args += [plan.ctas, plan.share, int(plan.streamed), None if md is None else md.data_ptr(),
+                 None if cnt is None else cnt.data_ptr()]
     if B > 0:
         with torch.cuda.device(dev):
-            err = fn(xyz.data_ptr(), B, N, npoint, len(radii), ctypes.cast(r2, P), ctypes.cast(ns, P), idx.data_ptr(),
-                     None if counts is None else counts.data_ptr(),
-                     None if need_ptrs is None else ctypes.cast(need_ptrs, P),
-                     torch.cuda.current_stream(dev).cuda_stream)
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"fps kernel launch failed: CUDA error {err}")
-        LAUNCHES["fps_bounds" if bounds else "fps_counts" if radii else "fps"] += 1
+            raise RuntimeError(f"{'fps_cluster' if large else 'fps'} kernel launch failed: CUDA error {err}")
+        variant = "fps_bounds" if bounds else "fps_counts" if radii else "fps"
+        LAUNCHES[variant.replace("fps", "fps_large", 1) if large else variant] += 1
     if bounds:
         return idx, need
     return (idx, tuple(counts.unbind(0))) if radii else idx

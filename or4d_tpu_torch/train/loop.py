@@ -3,8 +3,11 @@
 One train step: augment the batch (when the config asks for it), run SGPN in
 train mode over a flat unpaired ``SlotPack``, take the mask-weighted NLL
 (``sgpn_loss``), backpropagate and apply AdamW (``lr``, ``w_decay``, betas
-0.9/0.999, eps 1e-8 — optax's ``adamw`` defaults, every parameter decayed);
-the BN running statistics are updated in place during the forward. Eval
+0.9/0.999, eps 1e-8 — optax's ``adamw`` defaults, every trainable parameter
+decayed); with the image branch its frozen trunk (everything but
+``conv_head`` and ``reduction``) is outside the optimizer, no update and no
+decay, as ``optax.set_to_zero`` gives it in the JAX package
+(or4d_tpu/train/loop.py:68-77); the BN running statistics are updated in place during the forward. Eval
 steps run under ``torch.no_grad()`` with a paired pack for pair-shared
 batches.
 
@@ -38,12 +41,18 @@ class Trainer:
         self.cfg, self.vocab = cfg, vocab
         self.device = resolve_device(device)
         self.model = SGPN.from_config(cfg, vocab.num_classes, vocab.num_relations, device=self.device, seed=seed)
-        self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+        self.optimizer = torch.optim.AdamW(self.trainable_parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=cfg.w_decay)
         self.w_obj = torch.as_tensor(np.asarray(weights_obj, np.float32), device=self.device)
         self.w_rel = torch.as_tensor(np.asarray(weights_rel, np.float32), device=self.device)
         self.step = 0
         self.last_rel_logprobs: torch.Tensor | None = None
+
+    def trainable_parameters(self) -> list[torch.nn.Parameter]:
+        """The parameters AdamW updates (``efficientnet.is_trainable``)."""
+        from or4d_tpu_torch.models.efficientnet import is_trainable
+
+        return [p for n, p in self.model.named_parameters() if is_trainable(n)]
 
     def train_step(self, batch: SceneBatch, generator: torch.Generator | None = None, *,
                    augment_draws=None, dropout_keep: dict | None = None) -> dict[str, torch.Tensor]:
@@ -62,8 +71,8 @@ class Trainer:
         loss, parts = sgpn_loss(out, b, self.w_obj, self.w_rel, self.cfg.model.lambda_o)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        for p in self.model.parameters():
-            if p.grad is None:  # optax updates (decays) every parameter
+        for p in self.optimizer.param_groups[0]["params"]:
+            if p.grad is None:  # optax updates (decays) every trainable parameter
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.step += 1

@@ -104,9 +104,20 @@ class RelationMetricAccumulator:
 
     def update_batch(self, batch, rel_logprobs):
         """Accumulate a whole SceneBatch given the relation head's log-probs
-        (S, E, R): argmax predictions over the valid edges, per take."""
-        preds = _np(rel_logprobs).argmax(-1)
+        (S, E, R): argmax predictions over the valid edges, per take.
+        Multi-hot gt_rels (MULTI_REL_OUTPUTS; the head's output is then
+        sigmoid probabilities) are reduced to single labels on both sides
+        alike: argmax where any bit or probability clears 0.5, 'none'
+        otherwise (or4d_tpu/train/metrics.py:102-121)."""
+        out = _np(rel_logprobs)
         gt = _np(batch.gt_rels)
+        if gt.ndim == 3:
+            names = list(self.relation_names)
+            none_idx = names.index("none") if "none" in names else len(names) - 1
+            preds = np.where(out.max(-1) > 0.5, out.argmax(-1), none_idx)
+            gt = np.where(gt.max(-1) > 0.5, gt.argmax(-1), none_idx)
+        else:
+            preds = out.argmax(-1)
         for s, take_idx in enumerate(batch.take_idxs):
             self.update(take_idx, preds[s], gt[s], _np(batch.edge_mask)[s])
 

@@ -15,13 +15,16 @@ Layout mapping (reference -> port):
   gcn.gconvs.{i}.nn1.{1,4} / nn2.1                         BatchNorm1d
       -> ...nn1.bn_{0,1} / nn2.bn_0 (track_running_stats=False: affine only)
   obj_predictor.fc{1,2,3} / rel_predictor.fc{1,2,3}        Linear (same names)
+  full_image_model.{timm key}                              timm tf_efficientnet_b5_ns
+      -> image_branch.trunk.{efficientnet.timm_parameter_mapping()}
+  full_image_feature_reduction.{weight,bias}               Linear
+      -> image_branch.reduction.{weight,bias}
 
 Keys of the model that the checkpoint does not carry keep the model's
 values. A shape mismatch raises. Unmapped checkpoint keys other than the
 wrapper's ``weights_*`` buffers and BN ``num_batches_tracked`` counters are
-reported by a warning, as the JAX importer reports them; the image branch's
-``full_image_model.*`` / ``full_image_feature_reduction.*`` keys are among
-them until the port has an image branch.
+reported by a warning, as the JAX importer reports them (the image
+branch's keys among them when the model has no image branch).
 """
 
 from __future__ import annotations
@@ -55,6 +58,17 @@ def _key_pairs(port_keys) -> Iterator[tuple[str, str]]:
             yield f"gcn.gconvs.{i}.{ref}.{parts[4]}", key
         elif parts[0] in ("obj_predictor", "rel_predictor"):
             yield key, key
+        elif parts[0] == "image_branch" and parts[1] == "reduction":
+            yield f"full_image_feature_reduction.{parts[2]}", key
+        elif parts[0] == "image_branch":
+            yield f"full_image_model.{_timm_keys()[key.split('.', 2)[2]]}", key
+
+
+def _timm_keys() -> dict[str, str]:
+    """The image trunk's state_dict keys -> timm's."""
+    from or4d_tpu_torch.models.efficientnet import timm_parameter_mapping
+
+    return {port: timm for timm, port in timm_parameter_mapping()}
 
 
 def _to_np(v) -> np.ndarray:
@@ -71,7 +85,7 @@ def import_reference_state_dict(state_dict: Mapping, model: torch.nn.Module) -> 
         if ref not in state_dict:
             continue
         w = _to_np(state_dict[ref])
-        if w.ndim == 4:  # Conv2d 1x1 (O, I, 1, 1)
+        if w.ndim == 4 and ".SA_modules." in ref:  # Conv2d 1x1 (O, I, 1, 1)
             w = w.reshape(w.shape[0], -1)
         want = out[key]
         if tuple(w.shape) != tuple(want.shape):

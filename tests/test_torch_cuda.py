@@ -181,8 +181,11 @@ def test_sa_kernel_refuses_a_plan_over_shared_memory(card, monkeypatch):
 
 
 def test_kernel_wrappers_raise_outside_limits(card):
-    with pytest.raises(ValueError):
-        furthest_point_sample(_cloud(0, 1, 9000).to(card), 16)
+    """FPS takes clouds of any size (over 8192 points the cluster kernel,
+    ``tests/test_torch_cuda_fps_image.py``); it refuses more radii than the
+    kernels carry."""
+    with pytest.raises(ValueError, match="at most 4 radii"):
+        furthest_point_sample_with_counts(_cloud(0, 1, 9000).to(card), 16, (0.1, 0.2, 0.3, 0.4, 0.5))
     args, kw = _sa_inputs(7, 1, 600, 32, 6, 160, 64, False, torch.float32)
     with pytest.raises(ValueError):
         sa_group_mlp(*[_on(a, card) for a in args], **{k: _on(v, card) for k, v in kw.items()})

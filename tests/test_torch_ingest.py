@@ -216,11 +216,17 @@ def test_strict_data_raises_on_a_missing_pcd(tmp_path):
 
 
 def test_cache_is_the_ports_own_and_image_branch_refused(tmp_path):
+    """The sample cache is the port's own. The image branch was refused
+    until the port had one; it is now taken, and a sample's six frames
+    equal the JAX package's (its frames read with PIL) bit for bit."""
     assert default_cache_dir().name == "or4d_torch_cache"
     cfg = tiny_cfg(TC, True)
     assert json.loads(json.dumps(cfg.image_input)) is False
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="image branch"):
-        ORDataset(dataclasses.replace(cfg, image_input="full"), "train", DEFAULT_VOCAB, data_root=ROOT,
-                  cache_dir=tmp_path)
+    img = lambda C, c: dataclasses.replace(c, image_input="full", model=dataclasses.replace(c.model, image_size=64))
+    ds = ORDataset(img(TC, cfg), "train", DEFAULT_VOCAB, data_root=ROOT, cache_dir=tmp_path / "port")
+    jds = JORDataset(img(JC, tiny_cfg(JC, True)), "train", J_VOCAB, data_root=str(ROOT), cache_dir=str(tmp_path / "jax"))
+    got, want = ds.sample(0), jds.sample(0)
+    assert got.images.shape == (6, 64, 64, 3) and got.images.dtype == np.float32
+    np.testing.assert_array_equal(got.images, want.images)
