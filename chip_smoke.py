@@ -2,11 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
 NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
 path and with ``train_raw`` false; at the largest batch with ``remat``),
-the bounds pre-pass, FPS over 8192 points (the cluster kernel), the
-``no_gt_image`` path (EfficientNet-B5 image branch), serving mode (cached
-SA1 geometry) and the command line from disk to JSON (L2 instance labels,
-train, evaluate, infer, roles, phases; ``no_gt_image``; ``--from-gt`` on
-registered scans over 8192 points) at the paper's full widths.
+the bounds pre-pass, FPS over 8192 points (the cluster kernel), Graphormer
+role prediction, the ``no_gt_image`` path (EfficientNet-B5 image branch),
+serving mode (cached SA1 geometry) and the command line from disk to JSON
+(L2 instance labels, train, evaluate, infer, roles, graphormer-roles,
+phases, visualize; ``no_gt_image``; ``--from-gt`` on registered scans over
+8192 points) at the paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --bounds-timing
@@ -47,6 +48,16 @@ phases) and its ``--device cpu`` L2 reference.
              tier at (1, 200,000) -> 200, grids of exact ties at 20,000 and
              100,000, the counts and bounds variants at (8, 20,000) -> 2048;
              each call launches the cluster kernel once.
+5c. graphormer — the role-prediction Graphormer at full width (12 layers,
+             hidden 80, 8 heads) on five synthetic tracks of 8 graphs of
+             40-64 nodes (``dense_role_take``): card against CPU from the
+             same weights (scores 1e-5, logits 1e-4 of their largest; one
+             train step's loss 1e-5 and gradients 1e-3 of the largest), a
+             3-epoch ``fit`` whose loss falls, and the forward, train step,
+             FLAG step (m = 3) and scoring ms (CUDA events), the host ms of
+             ``track_to_batch`` a track and peak memory. No hand-written
+             kernel sits on this path (plain PyTorch, as the JAX package's is
+             ``jnp`` outside any Pallas kernel).
 6. check_train — the train grouping kernels (forward and backward: raw
              mode, plane mode, and plane mode with the FPS bound, SA1's
              grouping with ``train_raw`` false) against their plain versions
@@ -157,7 +168,10 @@ phases) and its ``--device cpu`` L2 reference.
              from the checkpoint and with ``--torch-checkpoint`` of a random
              reference-layout .pth written under --out (its scan_relations
              keys must be the test scans); ``roles``, ``phases`` and
-             ``phases-eval`` on that JSON. One ``disk`` line: each stage's
+             ``phases-eval`` on that JSON; ``graphormer-roles`` twice on one
+             checkpoint dir (the second restores, skips training and writes
+             the same JSON), ``phases --roles`` on its JSON and ``visualize``
+             of the infer JSON (one HTML a non-empty scan, at most 20). One ``disk`` line: each stage's
              host seconds, ingest and infer scans/s, peak device memory and
              the process's peak RSS, losses and F1 (finite). Then, on the
              same root with the fixture's camera frames added to every take,
@@ -773,8 +787,8 @@ def build_batches(S: int, seed: int):
 
 def profile_step(run, step_ms: float) -> dict:
     """Device time of one run by kernel name (torch.profiler, CUDA
-    activity): the 12 largest, their sum over all kernels, and the busy
-    share of the step's host-clock time."""
+    activity): the 12 largest, their sum over all kernels, the busy share of
+    the step's host-clock time and the count of device launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -786,7 +800,7 @@ def profile_step(run, step_ms: float) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return {"device_ms": device_ms, "busy_share": device_ms / step_ms,
+    return {"device_ms": device_ms, "busy_share": device_ms / step_ms, "launches": sum(e.count for e in events),
             "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in events[:12]]}
 
 
@@ -1810,6 +1824,31 @@ def disk_phases(args, smi, results, stats) -> None:
         written = {"roles": roles.exists(), "phases": len(list((tmp / "phases").glob("*.json")))}
         if not written["roles"] or written["phases"] != len({k.split("_")[0] for k in test_ids}):
             fail(f"roles/phases files missing: {written}")
+
+        # graphormer-roles twice on one checkpoint dir (the second restores
+        # and skips training, the same JSON), phases on its roles, visualize
+        # on the infer JSON
+        groles, gck = tmp / "graphormer_roles.json", tmp / "ck_graphormer"
+        gargs = ["graphormer-roles", "--data-root", str(root), "--checkpoint-dir", str(gck), "--output", str(groles),
+                 "--seed", str(args.seed)]
+        stages["graphormer_roles"], _, text = run_cli(gargs, log)
+        first = json.loads(groles.read_text())
+        stages["graphormer_roles_resumed"], _, text2 = run_cli(gargs, log)
+        if "skipping training" in text or "skipping training" not in text2 or json.loads(groles.read_text()) != first:
+            fail(f"graphormer-roles did not resume from {gck} to the same JSON: {text2}")
+        if not first or not all(isinstance(v, dict) and v for v in first.values()):
+            fail(f"graphormer-roles wrote no role predictions: {first}")
+        stages["phases_graphormer_roles"], _, _ = run_cli(
+            ["phases", "--relations", str(rels_path), "--roles", str(groles), "--output-dir", str(tmp / "phases_g")],
+            log)
+        stages["visualize"], _, _ = run_cli(["visualize", "--relations", str(rels_path), "--output-dir",
+                                             str(tmp / "vis")], log)
+        html = sorted(p.name for p in (tmp / "vis").glob("*.html"))
+        n_nonempty = sum(1 for v in rels[rels_path.name].values() if v)
+        written.update(graphormer_frames=len(first), phases_graphormer=len(list((tmp / "phases_g").glob("*.json"))),
+                       visualize_html=len(html))
+        if written["phases_graphormer"] != written["phases"] or len(html) != min(n_nonempty, 20):
+            fail(f"phases on the graphormer roles or visualize wrote the wrong files: {written}")
         data_bytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
 
         # no_gt_image: the fixture's camera frames in every take, then train,
@@ -1875,7 +1914,7 @@ def disk_phases(args, smi, results, stats) -> None:
         # the process's peak since it started (earlier phases included)
         "process_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "train": history, "train_image": history_img, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
-        "from_gt": from_gt,
+        "from_gt": from_gt, "files_written": written,
         "l2_launches_per_scan": launches["instance-labels"]["fps.fps"] / n_scans,
         "launches": {stage: {c: n for c, n in d.items() if n} for stage, d in launches.items()},
         "finite": finite,
@@ -2233,6 +2272,129 @@ def image_phase(seed: int, smi: str, results: dict, eval_samples) -> None:
     torch.cuda.empty_cache()
 
 
+GRAPHORMER_GRAPHS = 8  # graphs a track (the CLI's max_graphs on real tracks)
+GRAPHORMER_NODES = (40, 64)  # star-graph nodes a frame: dense real scenes
+
+
+def dense_role_take(seed: int):
+    """A synthetic take of five tracks (one a role, humans human_0..4) over
+    GRAPHORMER_GRAPHS frames whose star graphs have 40-64 nodes: each
+    frame's relations are the five roles' behaviours plus random triplets
+    among the staff, the patient and the furniture, until the graph's node
+    count (entities + one node a relation) reaches a drawn size. Returns
+    (tracks, frame_to_relations, [(batch, label)], host ms of
+    ``track_to_batch`` a track)."""
+    import numpy as np
+
+    from or4d_tpu_torch.pipeline import role_dataset as rd
+    from or4d_tpu_torch.pipeline.role_graphormer import star_expand
+
+    rng = np.random.default_rng(seed)
+    roles = list(rd._ROLE_BEHAVIORS)
+    humans = [f"human_{i}" for i in range(len(roles))]
+    things = ["Patient", "anesthesia_equipment", "operating_table", "instrument_table", "secondary_table",
+              "instrument", "object", "human_9"]
+    preds = ["Assisting", "Cementing", "Cleaning", "CloseTo", "Cutting", "Drilling", "Hammering", "Holding",
+             "LyingOn", "Operating", "Preparing", "Sawing", "Suturing", "Touching"]
+    frame_to_relations, tracks = {}, []
+    for i in range(GRAPHORMER_GRAPHS):
+        rels = [(h if s == "TARGET" else s, r, h if o == "TARGET" else o)
+                for h, role in zip(humans, roles) for s, r, o in rd._ROLE_BEHAVIORS[role]]
+        want = int(rng.integers(GRAPHORMER_NODES[0], GRAPHORMER_NODES[1]))  # one relation adds 1 or 2 nodes
+        while len(star_expand(rels).node_ids) < want:
+            rels.append((humans[rng.integers(len(humans))], preds[rng.integers(len(preds))],
+                         (humans + things)[rng.integers(len(humans) + len(things))]))
+        frame_to_relations[f"{i:06d}"] = rels
+    for ri, h in enumerate(humans):
+        poses = {f: (h, rng.normal(size=(14, 3))) for f in frame_to_relations}
+        tracks.append(rd.RoleTrack(take_idx=1, track_idx=ri, timestamp_to_human_pose=poses, role_label=ri))
+    t0 = time.perf_counter()
+    data = [(t.to_batch(frame_to_relations, max_graphs=GRAPHORMER_GRAPHS), t.role_label) for t in tracks]
+    host_ms = 1e3 * (time.perf_counter() - t0) / len(tracks)
+    return tracks, frame_to_relations, data, host_ms
+
+
+def graphormer_phase(seed: int, smi: str, results: dict) -> None:
+    """graphormer: role prediction at the JAX defaults' full width (12
+    layers, hidden 80, FFN 80, 8 heads; 486,805 parameters, float32) on
+    ``dense_role_take``'s five tracks of 8 graphs. Gates: the card's scores
+    within 1e-5 and logits within 1e-4 of their largest of the CPU's from
+    the same weights, one train step's loss within 1e-5 and every gradient
+    within 1e-3 of the largest (dropout masks from one CPU generator on both
+    sides); a 3-epoch ``fit`` (peak lr 1e-3, 5 warm-up updates) whose last
+    epoch's mean loss is below its first's. Times (CUDA events): the eval
+    forward, ``train_step``, ``flag_train_step`` (m = 3) and ``score_track``
+    a track (with its host copy of the scores); the host ms of
+    ``track_to_batch`` a track; peak memory."""
+    import numpy as np
+
+    from or4d_tpu_torch.train.graphormer_trainer import GraphormerTrainer
+
+    _tracks, f2r, data, host_ms = dense_role_take(seed + 700)
+    nodes = [int((b.x[g] > 0).sum()) for b, _l in data[:1] for g in range(b.x.shape[0])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card = GraphormerTrainer(device="cuda", seed=seed)
+    cpu = GraphormerTrainer(device="cpu", seed=seed + 1)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    n_params = sum(p.numel() for p in card.model.parameters())
+
+    # card vs CPU: eval logits and scores, then one train step
+    batch, label = data[0]
+    gb = batch.to("cuda")
+    with torch.no_grad():
+        lg, lc = card.model(gb).cpu(), cpu.model(batch)
+    d_logits, logit_scale = float((lg - lc).abs().max()), float(lc.abs().max())
+    d_scores = max(abs(a - b) for a, b in zip(card.score_track(gb).values(), cpu.score_track(batch).values()))
+    loss_g = float(card.train_step(gb, label, torch.Generator().manual_seed(seed)))
+    loss_c = float(cpu.train_step(batch, label, torch.Generator().manual_seed(seed)))
+    grads_c = dict(cpu.model.named_parameters())
+    g_scale = max(float(p.grad.abs().max()) for p in grads_c.values())
+    d_grad = max(float((p.grad.cpu() - grads_c[k].grad).abs().max()) for k, p in card.model.named_parameters())
+    check = {"logits_max_abs_diff": d_logits, "logits_max_abs": logit_scale, "scores_max_abs_diff": d_scores,
+             "loss_card": loss_g, "loss_cpu": loss_c, "grad_max_abs_diff": d_grad, "grad_max_abs": g_scale}
+    ok = (d_scores <= 1e-5 and d_logits <= 1e-4 * logit_scale and abs(loss_g - loss_c) <= 1e-5
+          and d_grad <= 1e-3 * g_scale)
+
+    # times on the card
+    def fwd():
+        with torch.no_grad():
+            card.model(gb)
+
+    fwd_ms = cuda_ms(fwd, 20)
+    step_ms = cuda_ms(lambda: card.train_step(gb, label), 10)
+    flag_ms = cuda_ms(lambda: card.flag_train_step(gb, label, m=3), 5)
+    profiles = {"forward": profile_step(fwd, fwd_ms), "train_step": profile_step(lambda: card.train_step(gb, label),
+                                                                               step_ms)}
+    for prof in profiles.values():
+        prof["top"] = prof["top"][:5]
+    t0 = time.perf_counter()
+    for b, _l in data:
+        card.score_track(b)
+    score_ms = 1e3 * (time.perf_counter() - t0) / len(data)
+    peak = torch.cuda.max_memory_allocated()
+
+    # a short fit whose loss falls
+    fitter = GraphormerTrainer(device="cuda", seed=seed, peak_lr=1e-3, warmup_updates=5, tot_updates=1000)
+    losses = fitter.fit(data, epochs=3)
+    per_epoch = [float(np.mean(losses[i * len(data):(i + 1) * len(data)])) for i in range(3)]
+    finite = all(math.isfinite(x) for x in losses)
+    g = {"card": smi, "layers": 12, "hidden": 80, "heads": 8, "parameters": n_params, "tracks": len(data),
+         "graphs_per_track": GRAPHORMER_GRAPHS, "nodes_per_graph": nodes,
+         "relations_per_graph": [len(v) for v in f2r.values()], "card_vs_cpu": check,
+         "forward_ms": fwd_ms, "train_step_ms": step_ms, "flag_train_step_ms": flag_ms, "flag_m": 3,
+         "score_track_ms": score_ms, "track_to_batch_host_ms": host_ms, "peak_mem_bytes": peak, "profile": profiles,
+         "fit_epoch_mean_loss": per_epoch, "finite": finite}
+    emit({"phase": "graphormer", **g})
+    results["graphormer"] = g
+    if not ok:
+        fail(f"graphormer card vs CPU outside the gate: {check}")
+    if not finite or not per_epoch[-1] < per_epoch[0]:
+        fail(f"graphormer fit: losses do not fall over 3 epochs: {per_epoch}")
+    del card, cpu, fitter, gb
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
@@ -2417,6 +2579,7 @@ def main(argv=None) -> int:
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_t": bound_t, "library_ms": {}}
     fps_large_phase(args.seed, smi, results, stats)
+    graphormer_phase(args.seed, smi, results)
     train_phases(args, rec, smi, results, stats)
     remat_phases(args.seed, smi, results)
     image_phase(args.seed, smi, results, samples[:S])

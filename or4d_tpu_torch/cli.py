@@ -7,17 +7,19 @@ command (the counterpart of ``or4d_tpu/cli.py``).
   python -m or4d_tpu_torch.cli infer    --config no_gt --data-root D --checkpoint-dir C \\
       --split test  # writes scan_relations_{config}_{split}.json
   python -m or4d_tpu_torch.cli roles    --relations scan_relations_*.json --output roles.json
+  python -m or4d_tpu_torch.cli graphormer-roles --data-root D --checkpoint-dir G  # Graphormer roles
   python -m or4d_tpu_torch.cli phases   --relations scan_relations_*.json \\
       --roles roles.json --output-dir phases_to_frames
   python -m or4d_tpu_torch.cli phases-eval --gt-dir G --pred-dir P
+  python -m or4d_tpu_torch.cli visualize --relations scan_relations_*.json --output-dir V
 
-``train``, ``evaluate``, ``infer`` and ``instance-labels`` run on the card
-unless given ``--device cpu``, and raise without one. Interchange formats
-are the reference contracts: scan_relations json (main.py:111-115), role
-json (heuristic_based_role_prediction.py:392), phase_to_frames json
-(recognize_surgery_phase.py:182-189). The ``graphormer-roles``,
-``perception`` and ``visualize`` modes of the JAX CLI are not ported yet and
-are refused.
+``train``, ``evaluate``, ``infer``, ``instance-labels`` and
+``graphormer-roles`` run on the card unless given ``--device cpu``, and
+raise without one. Interchange formats are the reference contracts:
+scan_relations json (main.py:111-115), role json
+(heuristic_based_role_prediction.py:392), phase_to_frames json
+(recognize_surgery_phase.py:182-189). The JAX CLI's ``perception`` mode is
+not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -32,16 +34,14 @@ import torch
 # modes of the JAX CLI that the port does not have yet, and the ROADMAP
 # Queue 1 item that brings each
 _NOT_PORTED = {
-    "graphormer-roles": "Queue 1 item 6 (Graphormer role prediction)",
     "perception": "Queue 1 item 5 (L1 perception)",
-    "visualize": "Queue 1 item 7 (visualize)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="or4d_tpu_torch", description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=["train", "evaluate", "infer", "roles", "phases", "phases-eval",
-                                    "instance-labels", *_NOT_PORTED])
+    p.add_argument("mode", choices=["train", "evaluate", "infer", "roles", "graphormer-roles", "phases",
+                                    "phases-eval", "instance-labels", "visualize", *_NOT_PORTED])
     p.add_argument("--config", default="no_gt", help="builtin config name or JSON path")
     p.add_argument("--data-root", default="data")
     p.add_argument("--cache-dir", default=None,
@@ -125,6 +125,104 @@ def run_roles(args) -> int:
     out = args.output or "rule_based_role_predictions.json"
     write_role_json(out, all_roles)
     print(f"wrote {out} ({len(all_roles)} frames)")
+    return 0
+
+
+def run_graphormer_roles(args, device: torch.device) -> int:
+    """Graphormer role prediction: train on tracks (a tracks pickle with
+    --relations, or synthetic role-behavior tracks), score every track with
+    the temperature-4 softmax, assign roles greedily per frame, and write
+    graphormer_based_role_predictions.json in the {"{take}_{scan}":
+    {human_name: role}} format (role_prediction_helpers.output_role_predictions
+    :211-251) that the heuristic writer and the phases stage use. A
+    checkpoint dir holding a state is restored and training skipped. When
+    GT scans are under --data-root a classification report's macro F1 is
+    printed (eval_role_prediction_perf :142-208). The tracks pickle is read
+    with ``pickle``: pass only files this pipeline or the reference wrote."""
+    import pickle
+
+    from or4d_tpu_torch.data.dataset import load_relationship_scans
+    from or4d_tpu_torch.pipeline import role_dataset
+    from or4d_tpu_torch.pipeline.roles_heuristic import (eval_role_prediction_perf, predict_roles_for_take,
+                                                         write_role_json)
+    from or4d_tpu_torch.train import checkpoint as ckpt
+    from or4d_tpu_torch.train import graphormer_trainer
+
+    trainer = graphormer_trainer.GraphormerTrainer(device=device, seed=args.seed)
+    if args.tracks and args.relations:
+        scan_relations = _load_scan_relations(args.relations)
+        raw_tracks = pickle.loads(Path(args.tracks).read_bytes())
+        take_idx = min(int(k.split("_")[0]) for k in scan_relations)
+        frame_to_relations = {k.split("_", 1)[1]: v for k, v in scan_relations.items()}
+        # role labels come from the GT humans nearest to each track; the
+        # JAX CLI passes none (or4d_tpu/cli.py:169) and then fails on an
+        # empty track list
+        tracks = role_dataset.build_tracks(take_idx, raw_tracks, frame_to_relations, {})
+        if not tracks:
+            raise ValueError(f"graphormer-roles: none of the {len(raw_tracks)} tracks in {args.tracks} received a "
+                             "role label: labels come from the GT humans of each frame, and no GT humans were given")
+        data = [(t.to_batch(frame_to_relations, max_graphs=8), t.role_label) for t in tracks]
+        assign_tracks = raw_tracks
+    else:
+        print("no --tracks/--relations given: training on synthetic role-behavior tracks")
+        take_idx = 1
+        tracks, frame_to_relations, data = role_dataset.make_synthetic_role_take(take_idx)
+        assign_tracks = [{"timestamp_to_human_pose": t.timestamp_to_human_pose} for t in tracks]
+    # reference auto-resume (entry.py:105-107): a checkpoint dir with a saved
+    # state means the model is trained; restore it and skip training
+    if args.checkpoint_dir and ckpt.latest_step(args.checkpoint_dir) is not None:
+        trainer.restore(args.checkpoint_dir)
+        print(f"restored graphormer checkpoint from {args.checkpoint_dir}; skipping training")
+    else:
+        losses = trainer.fit(data, epochs=args.epochs or 3, checkpoint_dir=args.checkpoint_dir)
+        print(f"trained on {len(data)} tracks: loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+
+    # scores keyed by RAW track index (unscored tracks fall back to the
+    # reference's default guess inside the assignment)
+    scores = {t.track_idx: trainer.score_track(b) for t, (b, _l) in zip(tracks, data)}
+    predictions = predict_roles_for_take(take_idx, assign_tracks, frame_to_relations, scores)
+    out = args.output or "graphormer_based_role_predictions.json"
+    write_role_json(out, predictions)
+    print(f"wrote {out} ({len(predictions)} frames)")
+
+    for split in ("train", "val", "test"):
+        gt_scans = [s for s in load_relationship_scans(args.data_root, split) if s["take_idx"] == take_idx]
+        if gt_scans:
+            _, overall = eval_role_prediction_perf({take_idx: gt_scans}, predictions)
+            if overall is not None:
+                print(f"role eval vs GT ({split}): macro F1 {overall.macro_f1:.3f}")
+            break
+    return 0
+
+
+def run_visualize(args) -> int:
+    """L5: predicted scene graphs to HTML (the reference's pyvis
+    visualize_scene_graph_predictions.py) and, with --pcd-dir and
+    instance-label npz files under --boxes-dir, labeled clouds to PNG
+    (visualize_instance_labels.py; needs matplotlib)."""
+    from or4d_tpu_torch.utils.visualize import instance_labels_to_png, scene_graph_to_html
+
+    outdir = Path(args.output_dir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    count = 0
+    if args.relations:
+        scan_relations = _load_scan_relations(args.relations)
+        nonempty = [(k, v) for k, v in sorted(scan_relations.items()) if v]
+        for scan_id, rels in nonempty[: args.limit or 20]:
+            scene_graph_to_html(rels, outdir / f"sg_{scan_id}.html", title=f"scene graph {scan_id}")
+            count += 1
+    if args.pcd_dir and args.boxes_dir:
+        from or4d_tpu_torch.data.pcd_io import read_pcd
+
+        for pcd_path in sorted(Path(args.pcd_dir).glob("*.pcd"))[: args.limit or 5]:
+            lab_path = Path(args.boxes_dir) / f"{pcd_path.stem}.npz"
+            if not lab_path.exists():
+                continue
+            pts = read_pcd(pcd_path)
+            labels = np.load(lab_path)["arr_0"]
+            instance_labels_to_png(pts[:, :3], labels, outdir / f"labels_{pcd_path.stem}.png", title=pcd_path.stem)
+            count += 1
+    print(f"wrote {count} visualizations to {outdir}")
     return 0
 
 
@@ -312,9 +410,13 @@ def main(argv: list[str] | None = None) -> int:
         return run_phases(args)
     if args.mode == "phases-eval":
         return run_phases_eval(args)
+    if args.mode == "visualize":
+        return run_visualize(args)
     device = resolve_device(args.device)
     if args.mode == "instance-labels":
         return run_instance_labels(args, device)
+    if args.mode == "graphormer-roles":
+        return run_graphormer_roles(args, device)
     return run_sgpn(args, device)
 
 

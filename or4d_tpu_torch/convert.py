@@ -1,4 +1,4 @@
-"""Carry the JAX package's SGPN variables over to the port.
+"""Carry the JAX package's SGPN and Graphormer variables over to the port.
 
 ``from_jax_variables(variables, model)`` maps the flax tree
 ({"params": ..., "batch_stats": ...}, leaves as numpy arrays) onto the
@@ -9,7 +9,8 @@ a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a convolution's
 (out, in, k, k); a norm's
 ``scale``/``bias`` become ``weight``/``bias``; ``batch_stats`` ``mean``/``var``
 become ``running_mean``/``running_var``. Missing or extra keys and shape
-mismatches raise.
+mismatches raise. ``graphormer_from_jax_params(params, model)`` does the
+same for the role-prediction Graphormer.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
 def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """The state_dict of ``model`` built from the JAX variables; load it with
     ``model.load_state_dict``. Tensors are float32 on the model's device."""
-    expected = model.state_dict()
     out: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
@@ -49,6 +49,13 @@ def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.
             if key in out:
                 raise KeyError(f"duplicate key {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return _matched(out, model)
+
+
+def _matched(out: dict[str, torch.Tensor], model: nn.Module) -> dict[str, torch.Tensor]:
+    """``out`` checked against ``model``'s state_dict (the same keys and
+    shapes) and moved to its tensors' devices and dtypes."""
+    expected = model.state_dict()
     missing = sorted(set(expected) - set(out))
     extra = sorted(set(out) - set(expected))
     if missing or extra:
@@ -59,3 +66,29 @@ def from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.
             raise ValueError(f"{key}: JAX shape {tuple(t.shape)} vs model {tuple(ref.shape)}")
         out[key] = t.to(device=ref.device, dtype=ref.dtype)
     return out
+
+
+# the Graphormer's parameters that are neither a Dense, an Embed nor a LayerNorm
+_GRAPHORMER_RAW = ("edge_dis_encoder", "graph_token", "graph_token_virtual_distance")
+_GRAPHORMER_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def graphormer_from_jax_params(params: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The state_dict of the port's ``Graphormer`` from the flax parameter
+    tree of ``or4d_tpu.models.graphormer.Graphormer``: Dense kernels
+    transposed, Embed ``embedding`` and LayerNorm ``scale`` become
+    ``weight``, the raw parameters carry across. Missing or extra keys and
+    shape mismatches raise."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        arr = np.asarray(leaf, dtype=np.float32)
+        if len(path) == 1 and path[0] in _GRAPHORMER_RAW:
+            key = path[0]
+        elif path[-1] in _GRAPHORMER_LEAF:
+            key = ".".join(path[:-1] + (_GRAPHORMER_LEAF[path[-1]],))
+            if path[-1] == "kernel":
+                arr = arr.T
+        else:
+            raise KeyError(f"unknown leaf {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return _matched(out, model)

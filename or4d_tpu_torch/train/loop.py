@@ -106,17 +106,31 @@ class Trainer:
 
     def fit(self, train_batches, val_batches=None, epochs: int | None = None,
             generator: torch.Generator | None = None, log_every: int = 100, checkpoint_dir: str | None = None,
-            serving_val: bool = False):
+            serving_val: bool = False, log_dir: str | None = None):
         """Epoch loop with per-take metric accumulation (reference
         training_epoch_end/validation_epoch_end); a checkpoint per epoch
         when ``checkpoint_dir``. Returns the per-epoch history.
+
+        ``log_dir``: a :class:`~or4d_tpu_torch.utils.logging.MetricsLogger`
+        named after the config writes, per epoch, the record and
+        ``steps_per_sec`` (the mean over the last 50 steps), the per-take
+        train P/R/F1 and the train classification report, as the JAX
+        package's ``fit`` does.
 
         ``serving_val``: the per-epoch validation goes through one
         :class:`~or4d_tpu_torch.serving.ServingEvaluator` built before the
         loop, so the val split's weight-independent SA1 geometry is computed
         once instead of every epoch."""
+        from collections import deque
+
         from or4d_tpu_torch.train import checkpoint as ckpt
 
+        logger = None
+        if log_dir:
+            from or4d_tpu_torch.utils.logging import MetricsLogger
+
+            logger = MetricsLogger(log_dir, name=self.cfg.name)
+        step_seconds = deque(maxlen=50)
         server = None
         if serving_val and val_batches is not None:
             from or4d_tpu_torch.serving import ServingEvaluator
@@ -131,8 +145,10 @@ class Trainer:
             losses = []
             t0 = time.perf_counter()
             for i, batch in enumerate(train_batches):
+                t1 = time.perf_counter()
                 parts = self.train_step(batch, generator)
                 losses.append(float(parts["loss"]))
+                step_seconds.append(time.perf_counter() - t1)
                 acc.update_batch(batch.numpy(), self.last_rel_logprobs)
                 if log_every and i % log_every == 0:
                     print(f"epoch {epoch} step {i}: loss={losses[-1]:.4f}")
@@ -142,6 +158,14 @@ class Trainer:
                 record["val_macro_f1"] = server.evaluate() if server is not None else self.evaluate(val_batches)
             history.append(record)
             print(f"epoch {epoch}: {record}")
+            if logger:
+                logged = {k: v for k, v in record.items() if k != "seconds"}
+                rate = len(step_seconds) / sum(step_seconds) if step_seconds else 0.0
+                logger.log(epoch, **logged, steps_per_sec=rate)
+                logger.log_per_take(epoch, "train", acc.per_take_reports())
+                logger.log_report("train_report", epoch, acc.overall_report().to_text())
             if checkpoint_dir:
                 ckpt.save(checkpoint_dir, self.model, self.optimizer, self.step)
+        if logger:
+            logger.close()
         return history

@@ -92,8 +92,7 @@ def test_cli_runs_from_the_fixture_on_the_cpu(tmp_path, monkeypatch, capsys):
         cli.main(["infer", *base])
 
 
-@pytest.mark.parametrize("mode,item", [("graphormer-roles", "item 6"), ("perception", "item 5"),
-                                       ("visualize", "item 7")])
+@pytest.mark.parametrize("mode,item", [("perception", "item 5")])
 def test_modes_not_ported_are_refused(mode, item):
     with pytest.raises(SystemExit, match=f"not ported yet: Queue 1 {item}"):
         cli.main([mode, "--device", "cpu"])

@@ -42,6 +42,10 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("ops/floyd_warshall", "models/graphormer", "pipeline/role_graphormer", "pipeline/role_dataset",
+                   "train/graphormer_trainer", "utils/logging", "utils/visualize"):
+        assert f"or4d_tpu_torch/{module}.py" in names, module
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -77,7 +81,7 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels"])
+@pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels", "graphormer-roles"])
 def test_cli_device_modes_raise_without_a_card(no_card, tmp_path, mode):
     from or4d_tpu_torch import cli
 
