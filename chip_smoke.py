@@ -2,12 +2,14 @@
 """Chip smoke test of the PyTorch/CUDA port (``or4d_tpu_torch``) on one
 NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
 path and with ``train_raw`` false; at the largest batch with ``remat``),
-the bounds pre-pass, FPS over 8192 points (the cluster kernel), Graphormer
-role prediction, the ``no_gt_image`` path (EfficientNet-B5 image branch),
+the bounds pre-pass, FPS over 8192 points (the cluster kernel), Group-Free
+3D detection, Graphormer role prediction, the ``no_gt_image`` path
+(EfficientNet-B5 image branch),
 serving mode (cached SA1 geometry) and the command line from disk to JSON
-(L2 instance labels, train, evaluate, infer, roles, graphormer-roles,
-phases, visualize; ``no_gt_image``; ``--from-gt`` on registered scans over
-8192 points) at the paper's full widths.
+(L2 instance labels, Group-Free detect-train / detect-infer, train,
+evaluate, infer, roles, graphormer-roles, phases, visualize;
+``no_gt_image``; ``--from-gt`` on registered scans over 8192 points) at the
+paper's full widths.
 
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --bounds-timing
@@ -48,6 +50,21 @@ phases) and its ``--device cpu`` L2 reference.
              tier at (1, 200,000) -> 200, grids of exact ties at 20,000 and
              100,000, the counts and bounds variants at (8, 20,000) -> 2048;
              each call launches the cluster kernel once.
+5b'. groupfree — the Group-Free detector at full width (20,000 points x 6
+             channels, SA 2048/1024/512/256, 128 proposals, 6 decoder
+             layers; ``groupfree_phase``): the main path (a B = 1 eval
+             forward and a B = 16 train step) with every counter zeroed
+             before and read after, FPS (both variants) and the ball query
+             launched; rows 2 and 8 exact against their plain versions at
+             every call of a recorded B = 16 forward (the cluster FPS at
+             (16, 20,000) -> 2048, row 8 unstaged at SA1); card vs CPU (the
+             B = 1 forward's seed indices, the rank-128 gap over twice the
+             logits' difference, candidate set and heads 1e-4, one
+             dropout-0 step's loss 1e-4 and every gradient 1e-2 of the
+             largest, SA1's train VJP 1e-2); the forward ms and ten step ms,
+             scans/s, peaks, profiles split by kernel kind (their FPS and
+             ball-query launches held against the launch counters), and
+             each kernel's ms beside its plain version and bound.
 5c. graphormer — the role-prediction Graphormer at full width (12 layers,
              hidden 80, 8 heads) on five synthetic tracks of 8 graphs of
              40-64 nodes (``dense_role_take``): card against CPU from the
@@ -152,8 +169,9 @@ phases) and its ``--device cpu`` L2 reference.
              split, two scans each; 20,000 points a scan in millimetres:
              four furniture objects, the patient and four staff at 2,000
              points each, and a 2,000-point floor; every other pcd
-             ``binary_compressed``; GT labels, GT joints, Group-Free box npzs
-             and pose npys), written with the port's writers
+             ``binary_compressed``; GT labels, GT joints, Group-Free box npzs,
+             pose npys and registered furniture scans), written with the
+             port's writers
              (``data/synthetic_root.py``) into a temporary directory, then
              the port's CLI (``cli.main``) through every stage on the card,
              each stage's launch counters zeroed before it and read after
@@ -161,7 +179,13 @@ phases) and its ``--device cpu`` L2 reference.
              ``instance-labels`` (the pred path; its FPS calls and distance
              tests recorded), then the same command with ``--device cpu``,
              whose label npzs must be equal but for points within 2 mm^2 of a
-             distance test's threshold^2; the ingest (read + prep of every
+             distance test's threshold^2; ``perception --task detect-train``
+             (one epoch, batches of 2, a checkpoint), ``detect-infer --split
+             test`` from it on the card and with ``--device cpu`` (the same
+             files; boxes matched one to one by class, coordinates and
+             scores 1e-4 of their largest) and ``instance-labels
+             --boxes-dir`` on the card's boxes
+             (``detect_stages``); the ingest (read + prep of every
              sample the later stages read, into their cache); ``train
              --strict-data`` (one epoch: two S=8 steps and the validation,
              a checkpoint); ``evaluate`` cold and ``--serving``; ``infer``
@@ -187,7 +211,10 @@ phases) and its ``--device cpu`` L2 reference.
 
 Then one ``kernels`` JSON line (row 2's L2 calls as its own entry,
 ``fps_l2``, per call, with its launches per scan; row 2's cluster variant
-as ``fps_large``, per call at the from-gt calls), nvidia-smi's line, and
+as ``fps_large``, per call at the from-gt calls; rows 2 and 8 as the
+Group-Free detector calls them, ``fps_large_groupfree``, ``fps_groupfree``
+and ``ball_query_groupfree``, per B = 16 forward, with the main path's
+launches), nvidia-smi's line, and
 the last line ``{"ok": true, "device": {...}}``. Weights are random, from a
 seed.
 
@@ -202,6 +229,7 @@ import argparse
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -785,23 +813,58 @@ def build_batches(S: int, seed: int):
                               pair_shared=True)
 
 
-def profile_step(run, step_ms: float) -> dict:
+def profile_step(run, step_ms: float, groups=None, counted=None) -> dict:
     """Device time of one run by kernel name (torch.profiler, CUDA
     activity): the 12 largest, their sum over all kernels, the busy share of
-    the step's host-clock time and the count of device launches."""
+    the step's host-clock time and the count of device launches. The run is
+    made twice in the profiler, a warm-up whose trace is dropped and the
+    recorded one: a trace started just before the run can miss its first
+    kernels. With ``groups`` ((group, name fragments), ...) also the device
+    time and launches split by group (the first whose fragment is in a
+    kernel's lower-cased name, else "other") and the host gaps (the run's
+    time with no kernel running). ``counted`` ({group: launch counter
+    prefixes}) holds the trace against the port's launch counters: a
+    group's kernels in the trace must be as many as those counters rose in
+    the recorded run, else the trace lost some and the run fails."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from or4d_tpu_torch.ops import launch_counts
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         run()
         torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
+        run()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        prof.step()
     # the kernels and copies themselves (the aten ops that launch them carry
     # the same device time again)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("ProfilerStep")]  # the step's own range on the device timeline
     events.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    return {"device_ms": device_ms, "busy_share": device_ms / step_ms, "launches": sum(e.count for e in events),
-            "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in events[:12]]}
+    out = {"device_ms": device_ms, "busy_share": device_ms / step_ms, "launches": sum(e.count for e in events),
+           "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in events[:12]]}
+    if groups is not None:
+        split = {g: 0.0 for g, _k in groups}
+        split["other"] = 0.0
+        calls = dict.fromkeys(split, 0)
+        for e in events:
+            name = e.key.lower()
+            g = next((g for g, keys in groups if any(k in name for k in keys)), "other")
+            split[g] += e.self_device_time_total / 1e3
+            calls[g] += e.count
+        out.update(split_ms=split, split_launches=calls, host_gap_ms=max(step_ms - device_ms, 0.0))
+        for g, prefixes in (counted or {}).items():
+            rose = sum(n - before.get(c, 0) for c, n in after.items() if c.startswith(prefixes))
+            out.setdefault("counted", {})[g] = {"trace": calls[g], "counters": rose}
+            if calls[g] != rose:
+                fail(f"profile: the trace holds {calls[g]} {g} kernels, the launch counters rose by {rose}")
+    return out
 
 
 def sa1_geometries(calls):
@@ -1635,6 +1698,9 @@ DISK_KERNELS = {
     "evaluate_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
     "infer_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
     "instance-labels-from-gt": ("fps.fps_large",),
+    "detect-train": ("fps.fps_large", "fps.fps", "ball_query.multiscale"),
+    "detect-infer": ("fps.fps_large", "fps.fps", "ball_query.multiscale"),
+    "instance-labels-detect-boxes": ("fps.fps",),
 }
 FIXTURE = Path(__file__).resolve().parent / "tests" / "golden" / "real_data"
 L2_BOUNDARY_MM2 = 2.0  # a label may flip only this close to a distance test's threshold^2
@@ -1698,6 +1764,66 @@ def l2_label_diffs(card_dir: Path, cpu_dir: Path, root: Path, tests) -> dict:
             "points": listed[:20]}
 
 
+def detect_stages(root: Path, tmp: Path, seed: int, log: Path, stages: dict, launches: dict) -> dict:
+    """Group-Free from disk on ``root`` (after its instance labels):
+    ``perception --task detect-train`` (one epoch, batches of 2, a
+    checkpoint), ``--task detect-infer --split test`` from it on the card and
+    with ``--device cpu`` (the same files and keys, classes equal, boxes and
+    scores within 1e-4 of their largest value), then ``instance-labels
+    --boxes-dir`` on the card's boxes. Host seconds into ``stages``,
+    counters into ``launches``; returns the summary."""
+    import numpy as np
+
+    from or4d_tpu_torch.pipeline.instance_labels import load_boxes_npz
+
+    ck, preds, preds_cpu = tmp / "ck_detect", tmp / "gf_preds", tmp / "gf_preds_cpu"
+    base = ["perception", "--data-root", str(root), "--checkpoint-dir", str(ck), "--seed", str(seed)]
+    stages["detect_train"], launches["detect-train"], text = run_cli([*base, "--task", "detect-train"], log)
+    losses = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines() if "detect epoch" in line]
+    infer = [*base, "--task", "detect-infer", "--split", "test"]
+    stages["detect_infer"], launches["detect-infer"], text = run_cli([*infer, "--output-dir", str(preds)], log)
+    t0 = time.perf_counter()
+    run_cli([*infer, "--output-dir", str(preds_cpu), "--device", "cpu"], log)
+    stages["detect_infer_cpu"] = time.perf_counter() - t0
+    files = sorted(p.name for p in preds.glob("*.npz"))
+    if not files or files != sorted(p.name for p in preds_cpu.glob("*.npz")) or "RANDOM INITIALIZATION" in text:
+        fail(f"detect-infer wrote different files on the card and the CPU, or ran without the checkpoint: {files}")
+    worst, boxes_nms = 0.0, 0
+    for name in files:
+        got, want = load_boxes_npz(preds / name), load_boxes_npz(preds_cpu / name)
+        if set(got) != set(want) or any(got[k].shape != want[k].shape or got[k].dtype != want[k].dtype for k in got):
+            fail(f"detect-infer {name}: card and CPU box dicts differ in keys, shapes or dtypes")
+        # boxes come in candidate (logit) or score order, which two nearly
+        # equal values may swap between the card and the CPU: rows are
+        # matched one to one, of the same class, nearest first
+        for sfx in ("", "_nms"):
+            rows = [np.concatenate([d["bboxes" + sfx], d["scores" + sfx][:, None]], 1) for d in (got, want)]
+            if not len(rows[1]):
+                continue
+            scale = np.abs(rows[1]).max(0)
+            cost = (np.abs(rows[0][:, None] - rows[1][None]) / scale).max(-1)
+            cost[got["classes" + sfx][:, None] != want["classes" + sfx][None]] = np.inf
+            free_g, free_w, matched = set(range(len(cost))), set(range(len(cost))), []
+            for flat in np.argsort(cost, axis=None):
+                i, j = divmod(int(flat), len(cost))
+                if i in free_g and j in free_w:
+                    free_g.discard(i)
+                    free_w.discard(j)
+                    matched.append(cost[i, j])
+            worst = max(worst, float(max(matched)))
+        boxes_nms += len(got["classes_nms"])
+    if worst > 1e-4:
+        fail(f"detect-infer: card boxes/scores {worst} of their largest from the CPU's")
+    stages["instance_labels_detect_boxes"], launches["instance-labels-detect-boxes"], _ = run_cli(
+        ["instance-labels", "--data-root", str(root), "--boxes-dir", str(preds), "--output-dir", str(tmp / "l2_gf")],
+        log)
+    labelled = sorted(p.name for p in (tmp / "l2_gf" / "instance_labels_pred").glob("*.npz"))
+    if not set(files) <= set(labelled):
+        fail(f"instance-labels --boxes-dir did not label the detected scans: {labelled}")
+    return {"train_epoch_losses": losses, "files": files, "boxes_nms": boxes_nms,
+            "card_vs_cpu_max_rel_diff": worst, "labelled_scans": len(labelled)}
+
+
 def disk_phases(args, smi, results, stats) -> None:
     """The disk phase (see the module docstring): a data root in the release
     layout written with the port's writers into a temporary directory, then
@@ -1759,6 +1885,7 @@ def disk_phases(args, smi, results, stats) -> None:
                 log)
         stages["instance_labels_cpu"] = time.perf_counter() - t0
         l2_diff = l2_label_diffs(root / "instance_labels_pred", tmp / "l2_cpu" / "instance_labels_pred", root, tests)
+        detect = detect_stages(root, tmp, args.seed, log, stages, launches)
 
         # ingest: read + prep of every sample the CLI stages below read, into
         # their cache (train; val paired for train's validation and evaluate;
@@ -1902,7 +2029,8 @@ def disk_phases(args, smi, results, stats) -> None:
             fail(f"instance-labels --from-gt on scans over 8192 points: card vs CPU {from_gt}")
 
     finite = all(math.isfinite(v) for v in (history["train_loss"], history["val_macro_f1"],
-                                            history_img["train_loss"], history_img["val_macro_f1"], *f1.values()))
+                                            history_img["train_loss"], history_img["val_macro_f1"], *f1.values(),
+                                            *detect["train_epoch_losses"]))
     missing = {stage: [c for c in need if launches[stage].get(c, 0) == 0] for stage, need in DISK_KERNELS.items()}
     missing = {k: v for k, v in missing.items() if v}
     disk = {
@@ -1914,7 +2042,7 @@ def disk_phases(args, smi, results, stats) -> None:
         # the process's peak since it started (earlier phases included)
         "process_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "train": history, "train_image": history_img, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
-        "from_gt": from_gt, "files_written": written,
+        "from_gt": from_gt, "files_written": written, "detect": detect,
         "l2_launches_per_scan": launches["instance-labels"]["fps.fps"] / n_scans,
         "launches": {stage: {c: n for c, n in d.items() if n} for stage, d in launches.items()},
         "finite": finite,
@@ -2395,6 +2523,305 @@ def graphormer_phase(seed: int, smi: str, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# TPU rows 2 and 8 as the Group-Free detector calls them (SAVotes): row 2's
+# cluster variant on SA1's 20,000-point clouds and fps.cu on SA2-SA4, row 8
+# with one scale a stage; their own entries in the kernels line, per B = 16
+# forward
+GROUPFREE_ROWS = (
+    ("fps_large_groupfree", "fps.fps_large", "or4d_tpu_torch/ops/csrc/fps_cluster.cu",
+     "or4d_tpu/ops/pallas_fps.py:200"),
+    ("fps_groupfree", "fps.fps", "or4d_tpu_torch/ops/csrc/fps.cu", "or4d_tpu/ops/pallas_fps.py:200"),
+    ("ball_query_groupfree", "ball_query.multiscale", "or4d_tpu_torch/ops/csrc/ball_query_multiscale.cu",
+     "or4d_tpu/ops/pallas_ball_query.py:139"),
+)
+GROUPFREE_BATCH = 16  # the reference's train batch (perception_trainers.py:7)
+GROUPFREE_POINTS = 20000  # the dataset's num_points
+# per-class mean box sizes (m) of the synthetic root's furniture
+GROUPFREE_MEAN_SIZES = ((0.6, 1.0, 0.5), (2.0, 0.8, 0.7), (1.2, 0.9, 0.6), (0.8, 0.8, 0.6))
+
+
+def groupfree_batch(seed: int, B: int, N: int = GROUPFREE_POINTS) -> dict:
+    """A ``GroupFreeDetectionDataset.batch()``-shaped batch of random room
+    scans (5 x 2 x 5 m, xyz in metres, centred colours): four GT boxes a
+    scan of the four classes, points within 0.5 m of a box centre labelled
+    with its index, padded boxes at +1000 (64 a scan)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform([-2.5, 0.0, -2.5], [2.5, 2.0, 2.5], (B, N, 3))
+    pc = np.concatenate([xyz, rng.uniform(-0.5, 0.5, (B, N, 3))], -1).astype(np.float32)
+    K2, k = 64, 4
+    msa = np.asarray(GROUPFREE_MEAN_SIZES, np.float32)
+    center = np.full((B, K2, 3), 1000.0, np.float32)
+    center[:, :k] = rng.uniform([-2.0, 0.3, -2.0], [2.0, 1.0, 2.0], (B, k, 3))
+    size_class = np.zeros((B, K2), np.int64)
+    size_class[:, :k] = np.arange(k)
+    size = np.zeros((B, K2, 3), np.float32)
+    size[:, :k] = msa[:k] * rng.uniform(0.8, 1.2, (B, k, 3))
+    heading_class = np.zeros((B, K2), np.int64)
+    heading_class[:, :k] = rng.integers(0, 12, (B, k))
+    mask = np.zeros((B, K2), np.float32)
+    mask[:, :k] = 1
+    d = ((pc[:, :, None, :3] - center[:, None, :k]) ** 2).sum(-1)
+    gt = {"center": center, "size": size, "size_class": size_class, "size_residual": size - msa[size_class],
+          "heading_class": heading_class, "heading_residual": rng.uniform(-0.2, 0.2, (B, K2)).astype(np.float32),
+          "sem_class": size_class.copy(), "mask": mask}
+    return {"point_clouds": pc, "point_instance_label": np.where(d.min(-1) < 0.25, d.argmin(-1), -1), "gt": gt}
+
+
+# the groupfree phase's profile split by what the kernels do (kernel names)
+GROUPFREE_KERNEL_GROUPS = (
+    ("fps", ("fps",)), ("ball_query", ("ball_query", "multiscale")),
+    ("gemm", ("gemm", "cutlass", "sm90_", "sm80_", "ampere", "cublas", "xmma", "dot_kernel")),
+    ("softmax", ("softmax",)), ("reduce", ("reduce", "welford", "norm")))
+# the groups whose kernels are the port's, held against their launch counters
+GROUPFREE_COUNTED = {"fps": ("fps.",), "ball_query": ("ball_query.",)}
+GROUPFREE_STEPS = 10  # B = 16 train steps timed one by one
+
+
+def groupfree_phase(seed: int, smi: str, results: dict, stats: dict) -> None:
+    """groupfree: the Group-Free detector at full width (20,000 points x 6
+    channels, SA 2048/1024/512/256, 1024 seeds of 288, 128 proposals, 6
+    decoder layers of FFN 2048; random weights from the seed, the synthetic
+    root's mean sizes). (1) The main path with the counters zeroed just
+    before and read just after: a B = 1 eval forward (the per-scan call of
+    ``run_detection_inference``) and a B = 16 train step; FPS (both
+    variants) and the ball query must launch. (2) Rows 2 and 8 against
+    their plain versions on the card, bit for bit, at every call of a
+    B = 16 forward (recorded): the cluster FPS at (16, 20,000) -> 2048 and
+    row 8 unstaged at SA1. (3) Card against CPU from the same weights: a
+    B = 1 eval forward (``seed_inds`` equal; the set of ``sample_inds``
+    equal where the rank-128 gap is over twice the logits' largest
+    difference, the gap reported; the heads' outputs within 1e-4 of their
+    largest, candidate by candidate: their order may differ) and one
+    dropout-0 B = 1 train step (loss 1e-4; every gradient 1e-2 of the
+    largest, the SA stages' and the others' reported apart; SA1's train
+    backward on one set of inputs and cotangent 1e-2). A rank-128 gap within
+    twice the logits' difference fails the phase. (4) CUDA-event ms of the
+    B = 1 forward and host-clock ms of GROUPFREE_STEPS B = 16 steps (each
+    synchronised; mean, median, least and most), scans/s, peak memory, a
+    profile split whose FPS and ball-query launches must equal the launch
+    counters', and the launch count; each kernel's ms beside its plain
+    version and its bound."""
+    import numpy as np
+
+    from or4d_tpu_torch.models import groupfree
+    from or4d_tpu_torch.ops import ball_query_multiscale as bqm
+    from or4d_tpu_torch.ops import fps, launch_counts, reset_launch_counts
+    from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    msa = torch.tensor(GROUPFREE_MEAN_SIZES, device="cuda")
+    B = GROUPFREE_BATCH
+    t0 = time.perf_counter()
+    batch = groupfree_batch(seed + 13, B)
+    one = groupfree_batch(seed + 14, 1)
+    data_s = time.perf_counter() - t0
+    trainer = GroupFreeTrainer(device="cuda", seed=seed)
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    pc16 = torch.from_numpy(batch["point_clouds"]).cuda()
+    pc1 = torch.from_numpy(one["point_clouds"]).cuda()
+
+    def forward1():
+        with torch.no_grad():
+            return model(pc1, msa, train=False)
+
+    def step16():
+        return trainer.train_step_from_batch(batch, GROUPFREE_MEAN_SIZES)
+
+    # (1) the main path: the per-scan eval forward and a B = 16 train step
+    model.eval()
+    reset_launch_counts()
+    out1 = forward1()
+    model.train()
+    loss16, _parts = step16()
+    torch.cuda.synchronize()
+    main_launches = launch_counts()
+    missing = [c for _n, c, _s, _r in GROUPFREE_ROWS if main_launches.get(c, 0) == 0]
+    if missing or not math.isfinite(float(loss16)):
+        fail(f"groupfree main path: kernels not launched {missing} ({main_launches}), loss {float(loss16)}")
+
+    # (2) rows 2 and 8 at every call of a B = 16 forward, recorded
+    calls = []
+    f_orig, b_orig = groupfree.furthest_point_sample, groupfree.ball_query_multiscale
+
+    def fps_rec(xyz, n):
+        calls.append(("fps", (xyz.detach().clone(), n)))
+        return f_orig(xyz, n)
+
+    def bq_rec(scales, xyz, new_xyz):
+        calls.append(("bq", (scales, xyz.detach().clone(), new_xyz.detach().clone())))
+        return b_orig(scales, xyz, new_xyz)
+
+    groupfree.furthest_point_sample, groupfree.ball_query_multiscale = fps_rec, bq_rec
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(pc16, msa, train=False)
+    finally:
+        groupfree.furthest_point_sample, groupfree.ball_query_multiscale = f_orig, b_orig
+    torch.cuda.synchronize()
+    per_call, agg = [], {r[0]: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t": [0.0, 0.0], "err": 0.0}
+                         for r in GROUPFREE_ROWS}
+    for kind, args in calls:
+        if kind == "fps":
+            xyz, n = args
+            row = "fps_large_groupfree" if xyz.shape[1] > fps._MAX_N else "fps_groupfree"
+            kern = lambda: fps.furthest_point_sample(xyz, n)
+            plain = lambda: fps.furthest_point_sample_plain(xyz, n)
+            b_ms, b_by, info = bound("furthest_point_sample", (xyz, n), {})
+            plan = str(fps.cluster_plan(xyz.shape[1])) if row == "fps_large_groupfree" else "fps.cu"
+            shape = str((tuple(xyz.shape), n))
+        else:
+            scales, xyz, q = args
+            row = "ball_query_groupfree"
+            kern = lambda: bqm.ball_query_multiscale(scales, xyz, q)[0]
+            plain = lambda: bqm.ball_query_multiscale_plain(scales, xyz, q)[0]
+            b_ms, b_by, info = serving_bound("ball_query_multiscale", (scales, xyz, q))
+            plan = str(bqm.multiscale_plan(xyz.shape[0], xyz.shape[1], q.shape[1], scales,
+                                           torch.cuda.get_device_properties(0).multi_processor_count))
+            shape = str((tuple(xyz.shape), q.shape[1], scales))
+        got = kern()
+        torch.cuda.synchronize()
+        d = max_abs_diff(got, plain())
+        entry = {"row": row, "card": smi, "shape": shape, "plan": plan, "max_abs_err": d}
+        emit({"phase": "check_groupfree", **entry})
+        if d != 0.0:
+            fail(f"{row} kernel disagrees with its plain version at {shape}: max |diff| {d}")
+        k_ms, p_ms = cuda_ms(kern, 5), cuda_ms(plain, 1)
+        entry.update({"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+                      **info})
+        emit({"phase": "timing_groupfree_kernel", **entry})
+        per_call.append(entry)
+        a = agg[row]
+        a["ms"] += k_ms
+        a["plain_ms"] += p_ms
+        a["bound_ms"] += b_ms
+        a["t"][0 if b_by == "bytes" else 1] += b_ms
+        a["err"] = max(a["err"], d)
+    sa1_staged = [e["plan"] for e in per_call if e["row"] == "ball_query_groupfree" and "20000" in e["shape"]]
+    if len(calls) != 8 or not sa1_staged or "stage_xyz=False" not in sa1_staged[0]:
+        fail(f"groupfree: expected 4 FPS and 4 ball-query calls with SA1's unstaged, got {len(calls)}: {sa1_staged}")
+    del calls
+
+    # (3) card against CPU from the same weights
+    cpu = groupfree.GroupFreeDetector(device="cpu", seed=seed).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    model.eval()
+    out1 = forward1()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu(pc1.cpu(), msa.cpu(), train=False)
+    cpu_fwd_s = time.perf_counter() - t0
+    logits = ref["seeds_obj_cls_logits"]
+    d_logits = float((out1["seeds_obj_cls_logits"].cpu() - logits).abs().max())
+    ranked = torch.sort(logits, dim=1, descending=True).values
+    gap = float(ranked[0, 127] - ranked[0, 128])
+    check = {"seed_inds_equal": bool(torch.equal(out1["seed_inds"].cpu(), ref["seed_inds"])),
+             "logits_max_abs_diff": d_logits, "rank128_gap": gap, "gap_allows": gap > 2 * d_logits}
+    # the set of candidates is compared only where the rank-128 gap decides
+    # it on both sides; a gap within the two sides' difference fails
+    ok = check["seed_inds_equal"] and check["gap_allows"]
+    if check["gap_allows"]:
+        # the gap decides the candidate set; their order (by logit) may differ
+        # where two candidates' logits are closer than the two sides differ,
+        # so each head's outputs are compared candidate by candidate
+        got_inds, want_inds = out1["sample_inds"][0].cpu(), ref["sample_inds"][0]
+        check["sample_inds_set_equal"] = bool(torch.equal(got_inds.sort().values, want_inds.sort().values))
+        check["sample_inds_order_equal"] = bool(torch.equal(got_inds, want_inds))
+        ok = ok and check["sample_inds_set_equal"]
+        if check["sample_inds_set_equal"]:
+            perm = torch.argsort(got_inds)[torch.argsort(torch.argsort(want_inds))]  # card position of each CPU one
+            heads = [("proposal", out1["proposal"], ref["proposal"])] + [
+                (f"head_{i}", g, w) for i, (g, w) in enumerate(zip(out1["layers"], ref["layers"]))]
+            worst = max((float((g[k].cpu()[:, perm] - w[k]).abs().max()) / float(w[k].abs().max()), f"{n}.{k}")
+                        for n, g, w in heads for k in w)
+            check["heads_max_rel_diff"] = list(worst)
+            ok = ok and worst[0] <= 1e-4
+    # one dropout-0 B = 1 train step, the same draws: loss, gradients
+    gstep = GroupFreeTrainer(device="cuda", seed=seed, dropout=0.0)
+    cstep = GroupFreeTrainer(device="cpu", seed=seed, dropout=0.0)
+    cstep.model.load_state_dict({k: v.cpu() for k, v in gstep.model.state_dict().items()})
+    t0 = time.perf_counter()
+    lc, _ = cstep.train_step_from_batch(one, GROUPFREE_MEAN_SIZES)
+    cpu_step_s = time.perf_counter() - t0
+    lg, _ = gstep.train_step_from_batch(one, GROUPFREE_MEAN_SIZES)
+    grads_c = {k: p.grad for k, p in cstep.model.named_parameters()}
+    g_scale = max(float(g.abs().max()) for g in grads_c.values())
+    diffs = {k: float((p.grad.cpu() - grads_c[k]).abs().max()) / g_scale for k, p in gstep.model.named_parameters()}
+    sa = {k: v for k, v in diffs.items() if k.startswith("backbone.sa")}
+    rest = {k: v for k, v in diffs.items() if not k.startswith("backbone.sa")}
+    check.update({"step_loss_card": float(lg), "step_loss_cpu": float(lc), "grad_max_abs": g_scale,
+                  "grad_rel_diff_outside_sa": max(rest.values()), "grad_rel_diff_sa_stages": max(sa.values()),
+                  "grad_worst_sa": max(sa, key=sa.get)})
+    ok = (ok and abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)) and check["grad_rel_diff_outside_sa"] <= 1e-2
+          and check["grad_rel_diff_sa_stages"] <= 1e-2)
+    # SA1's train backward alone, card vs CPU, on one set of inputs and cotangent
+    sa1g = gstep.model.backbone.sa1
+    sa1c = cstep.model.backbone.sa1
+    sa1c.load_state_dict({k: v.cpu() for k, v in sa1g.state_dict().items()})
+    xyz1 = pc1[..., :3].contiguous()
+    ct = torch.randn(1, 2048, 128, generator=torch.Generator().manual_seed(seed))
+    for mod, dev in ((sa1g, "cuda"), (sa1c, "cpu")):
+        mod.zero_grad()
+        _x, h, _i = mod(xyz1.to(dev), pc1[..., 3:].to(dev), train=True)
+        (h * ct.to(dev)).sum().backward()
+    s_scale = max(float(p.grad.abs().max()) for p in sa1c.parameters())
+    check["sa1_vjp_rel_diff"] = max(float((a.grad.cpu() - b.grad).abs().max()) for a, b in
+                                    zip(sa1g.parameters(), sa1c.parameters())) / s_scale
+    ok = ok and check["sa1_vjp_rel_diff"] <= 1e-2
+    emit({"phase": "groupfree_card_vs_cpu", "card": smi, **check, "cpu_forward_s": cpu_fwd_s,
+          "cpu_step_s": cpu_step_s})
+    if not ok:
+        fail(f"groupfree card vs CPU outside the gate: {check}")
+    del gstep, cstep, cpu, ref
+
+    # (4) times: the B = 1 forward (CUDA events), the B = 16 step (host clock)
+    model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = cuda_ms(forward1, 10)
+    fwd_peak = torch.cuda.max_memory_allocated()
+    fwd_prof = profile_step(forward1, fwd_ms, GROUPFREE_KERNEL_GROUPS, GROUPFREE_COUNTED)
+    model.train()
+    step16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_times = []
+    for _ in range(GROUPFREE_STEPS):
+        t0 = time.perf_counter()
+        loss16, _parts = step16()
+        torch.cuda.synchronize()
+        step_times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = sum(step_times) / len(step_times)
+    step_peak = torch.cuda.max_memory_allocated()
+    step_prof = profile_step(step16, step_ms, GROUPFREE_KERNEL_GROUPS, GROUPFREE_COUNTED)
+    g = {"card": smi, "points": GROUPFREE_POINTS, "channels": 6, "proposals": 128, "decoder_layers": 6,
+         "parameters": n_params, "host_data_s": data_s,
+         "forward_b1_ms": fwd_ms, "forward_b1_scans_per_s": 1e3 / fwd_ms, "forward_b1_peak_mem_bytes": fwd_peak,
+         "forward_b1_profile": fwd_prof,
+         "step_b16_ms": step_ms, "step_b16_ms_median": statistics.median(step_times),
+         "step_b16_ms_min": min(step_times), "step_b16_ms_max": max(step_times), "step_b16_steps": len(step_times),
+         "step_b16_scans_per_s": B * 1e3 / step_ms, "step_b16_peak_mem_bytes": step_peak,
+         "step_b16_profile": step_prof, "step_loss": float(loss16), "launches": main_launches,
+         "kernels": {r: {k: v for k, v in a.items() if k != "t"} for r, a in agg.items()},
+         "card_vs_cpu": check, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "groupfree", **g})
+    results["groupfree"] = {**g, "per_call": per_call}
+    if not math.isfinite(float(loss16)):
+        fail(f"groupfree: B = {B} step loss {float(loss16)}")
+    stats["groupfree_rows"] = [{
+        "name": row, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": main_launches[counter], "max_abs_err": agg[row]["err"],
+        "ms": agg[row]["ms"], "plain_ms": agg[row]["plain_ms"], "bound_ms": agg[row]["bound_ms"],
+        "bound_by": "bytes" if agg[row]["t"][0] >= agg[row]["t"][1] else "operations", "library_ms": None,
+        "per": f"B = {B} forward",
+    } for row, counter, src, replaces in GROUPFREE_ROWS]
+    del trainer, model, pc16, pc1, out1
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="build/chip_smoke", help="directory for the JSON outputs")
@@ -2579,6 +3006,7 @@ def main(argv=None) -> int:
     stats = {"errs": errs, "launches": dict(main_launches), "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_t": bound_t, "library_ms": {}}
     fps_large_phase(args.seed, smi, results, stats)
+    groupfree_phase(args.seed, smi, results, stats)
     graphormer_phase(args.seed, smi, results)
     train_phases(args, rec, smi, results, stats)
     remat_phases(args.seed, smi, results)
@@ -2604,6 +3032,7 @@ def main(argv=None) -> int:
         })
     kernels.append(stats["l2_row"])
     kernels.append(stats["fps_large_row"])
+    kernels.extend(stats["groupfree_rows"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -12,14 +12,18 @@ command (the counterpart of ``or4d_tpu/cli.py``).
       --roles roles.json --output-dir phases_to_frames
   python -m or4d_tpu_torch.cli phases-eval --gt-dir G --pred-dir P
   python -m or4d_tpu_torch.cli visualize --relations scan_relations_*.json --output-dir V
+  python -m or4d_tpu_torch.cli perception --task detect-train --data-root D --checkpoint-dir G
+  python -m or4d_tpu_torch.cli perception --task detect-infer --data-root D --checkpoint-dir G \\
+      --split test  # writes D/group_free_predictions/{take}_{scan}.npz
 
-``train``, ``evaluate``, ``infer``, ``instance-labels`` and
-``graphormer-roles`` run on the card unless given ``--device cpu``, and
-raise without one. Interchange formats are the reference contracts:
-scan_relations json (main.py:111-115), role json
+``train``, ``evaluate``, ``infer``, ``instance-labels``,
+``graphormer-roles`` and ``perception`` run on the card unless given
+``--device cpu``, and raise without one. Interchange formats are the
+reference contracts: scan_relations json (main.py:111-115), role json
 (heuristic_based_role_prediction.py:392), phase_to_frames json
-(recognize_surgery_phase.py:182-189). The JAX CLI's ``perception`` mode is
-not ported yet and is refused.
+(recognize_surgery_phase.py:182-189), Group-Free box npz
+(ap_helper.py:263-322). Of ``perception``'s tasks the Group-Free ones
+(``detect-train``, ``detect-infer``) are ported; the pose tasks are refused.
 """
 
 from __future__ import annotations
@@ -31,21 +35,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# modes of the JAX CLI that the port does not have yet, and the ROADMAP
-# Queue 1 item that brings each
-_NOT_PORTED = {
-    "perception": "Queue 1 item 5 (L1 perception)",
-}
+# perception tasks of the JAX CLI that the port does not have yet, and the
+# ROADMAP Queue 1 items that bring them
+_POSE_ITEMS = "Queue 1 item 5b (HigherHRNet, VoxelPose) and item 5c (their trainers and inference)"
+_NOT_PORTED_TASKS = {task: _POSE_ITEMS for task in ("pose2d-train", "pose2d-infer", "pose3d-train", "pose3d-infer")}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="or4d_tpu_torch", description=__doc__.split("\n\n")[0])
     p.add_argument("mode", choices=["train", "evaluate", "infer", "roles", "graphormer-roles", "phases",
-                                    "phases-eval", "instance-labels", "visualize", *_NOT_PORTED])
+                                    "phases-eval", "instance-labels", "visualize", "perception"])
+    p.add_argument("--task", default=None, choices=["pose2d-train", "pose2d-infer", "pose3d-train", "pose3d-infer",
+                                                    "detect-train", "detect-infer"],
+                   help="perception mode: which L1 stage to run")
     p.add_argument("--config", default="no_gt", help="builtin config name or JSON path")
     p.add_argument("--data-root", default="data")
     p.add_argument("--cache-dir", default=None,
-                   help="ORDataset sample cache base dir (default: or4d_torch_cache under the temp dir)")
+                   help="ORDataset sample cache base dir (default: or4d_torch_cache under the temp dir); "
+                        "perception detect-*: the ret-dict cache (default: <data-root>/preprocessed_ret_dicts)")
     p.add_argument("--strict-data", action="store_true",
                    help="fail instead of synthesizing geometry for scans whose raw files are missing")
     p.add_argument("--checkpoint-dir", default=None)
@@ -319,6 +326,50 @@ def run_instance_labels(args, device: torch.device) -> int:
     return 0
 
 
+def run_perception(args, device: torch.device) -> int:
+    """L1 Group-Free detection (train_OR.py, infer.py): ``detect-train``
+    trains ``--epochs`` epochs of batches of ``--batch-size`` scans in the
+    order ``np.random.default_rng(seed + epoch)`` shuffles them to, and
+    saves a checkpoint after each epoch; ``detect-infer`` writes
+    ``{take}_{scan}.npz`` box files for every scan of ``--split``. Both
+    resume from ``--checkpoint-dir`` when it holds a state. The
+    checkpoint's step is the update count (the JAX CLI names it by epoch)."""
+    from or4d_tpu_torch.data.groupfree_dataset import GroupFreeDetectionDataset
+    from or4d_tpu_torch.train import checkpoint as ckpt
+    from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
+
+    split = args.split or "train"
+    ds = GroupFreeDetectionDataset(args.data_root, split, cache_dir=args.cache_dir)
+    tr = GroupFreeTrainer(device=device, seed=args.seed)
+    msa = ds.mean_size_arr()
+    restored = bool(args.checkpoint_dir) and ckpt.latest_step(args.checkpoint_dir) is not None
+    if restored:
+        tr.step = ckpt.restore(args.checkpoint_dir, tr.model, tr.optimizer)
+    if args.task == "detect-infer":
+        from or4d_tpu_torch.pipeline.perception_infer import run_detection_inference
+
+        if not restored:
+            where = args.checkpoint_dir or "(no --checkpoint-dir given)"
+            print(f"WARNING: no checkpoint found under {where}; detect-infer will run from RANDOM INITIALIZATION")
+        out_dir = Path(args.output_dir or (Path(args.data_root) / "group_free_predictions"))
+        n = run_detection_inference(tr.model, ds, out_dir)
+        print(f"wrote {n} box npz files -> {out_dir}")
+        return 0
+    bs = args.batch_size or 2
+    order = np.arange(len(ds))
+    for epoch in range(args.epochs or 1):
+        np.random.default_rng(args.seed + epoch).shuffle(order)
+        sel = order[: args.limit] if args.limit else order
+        losses = []
+        for i in range(0, len(sel), bs):
+            loss, _parts = tr.train_step_from_batch(ds.batch([int(j) for j in sel[i : i + bs]]), msa)
+            losses.append(float(loss))
+        print(f"detect epoch {epoch}: loss={np.mean(losses):.4f} ({len(losses)} steps)")
+        if args.checkpoint_dir:
+            ckpt.save(args.checkpoint_dir, tr.model, tr.optimizer, tr.step)
+    return 0
+
+
 def run_sgpn(args, device: torch.device) -> int:
     """train / evaluate / infer of the SGPN scene-graph model from disk."""
     from or4d_tpu_torch.config import load_config
@@ -402,8 +453,12 @@ def main(argv: list[str] | None = None) -> int:
     from or4d_tpu_torch.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    if args.mode in _NOT_PORTED:
-        raise SystemExit(f"or4d_tpu_torch: mode {args.mode!r} is not ported yet: {_NOT_PORTED[args.mode]}")
+    if args.mode == "perception":
+        if args.task is None:
+            raise SystemExit("perception mode requires --task")
+        if args.task in _NOT_PORTED_TASKS:
+            raise SystemExit(f"or4d_tpu_torch: perception task {args.task!r} is not ported yet: "
+                             f"{_NOT_PORTED_TASKS[args.task]}")
     if args.mode == "roles":
         return run_roles(args)
     if args.mode == "phases":
@@ -417,6 +472,8 @@ def main(argv: list[str] | None = None) -> int:
         return run_instance_labels(args, device)
     if args.mode == "graphormer-roles":
         return run_graphormer_roles(args, device)
+    if args.mode == "perception":
+        return run_perception(args, device)
     return run_sgpn(args, device)
 
 

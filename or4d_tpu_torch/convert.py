@@ -10,7 +10,10 @@ a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), a convolution's
 ``scale``/``bias`` become ``weight``/``bias``; ``batch_stats`` ``mean``/``var``
 become ``running_mean``/``running_var``. Missing or extra keys and shape
 mismatches raise. ``graphormer_from_jax_params(params, model)`` does the
-same for the role-prediction Graphormer.
+same for the role-prediction Graphormer, and
+``groupfree_from_jax_variables(variables, model)`` for the Group-Free
+detector (flax attention's per-head kernels flattened to the port's Dense
+layout).
 """
 
 from __future__ import annotations
@@ -92,3 +95,38 @@ def graphormer_from_jax_params(params: Mapping, model: nn.Module) -> dict[str, t
             raise KeyError(f"unknown leaf {'/'.join(path)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return _matched(out, model)
+
+
+# the flax MultiHeadDotProductAttention projections of the Group-Free decoder
+_ATTENTION = ("self_attn", "cross_attn")
+
+
+def _flat_attention(path: tuple, arr: np.ndarray) -> np.ndarray:
+    """A flax attention leaf in the 2D layout of a Dense: query/key/value
+    kernels (in, heads, d) -> (in, heads * d), their biases (heads, d) ->
+    (heads * d,), the out kernel (heads, d, out) -> (heads * d, out)."""
+    if len(path) < 3 or path[-3] not in _ATTENTION:
+        return arr
+    proj, leaf = path[-2], path[-1]
+    if leaf == "kernel":
+        return arr.reshape(arr.shape[0] * arr.shape[1], -1) if proj == "out" else arr.reshape(arr.shape[0], -1)
+    return arr if proj == "out" else arr.reshape(-1)
+
+
+def groupfree_from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The state_dict of the port's ``GroupFreeDetector`` from the flax
+    variables of ``or4d_tpu.models.groupfree.GroupFreeDetector``: Dense
+    kernels transposed, attention kernels flattened first
+    (:func:`_flat_attention`), LayerNorm ``scale`` -> ``weight``,
+    ``batch_stats`` -> running statistics. Missing or extra keys and shape
+    mismatches raise."""
+    flat = {}
+    for collection in ("params", "batch_stats"):
+        tree: dict = {}
+        for path, leaf in _flatten(variables.get(collection, {})):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = _flat_attention(path, np.array(leaf, dtype=np.float32))  # a writable copy
+        flat[collection] = tree
+    return from_jax_variables(flat, model)

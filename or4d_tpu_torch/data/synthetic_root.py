@@ -9,6 +9,9 @@ writes the JAX package's fixture):
     human_name_to_3D_joints/{T}_GT_True.npz
     group_free_predictions/{T}_{S}.npz               (one box per furniture class)
     OR_4D_outputs/pred_{T}_{S}.npy                   ((humans, 14, 3) poses)
+    object_scans/{name}/{T}.ply                      (registered furniture scans)
+    object_pose_results/{POSE_SUBDIR}/{T}_{S}.npz    ({ply path: 4x4 transform})
+    object_pose_results/{POSE_SUBDIR}/{T}_stationary_objects.npz
 
 Clouds are in millimetres at OR-scale coordinates: four furniture objects
 (points inside their oriented boxes) and a patient lying on the table with
@@ -17,8 +20,12 @@ staff standing around it (points scattered along their limbs), each object
 furniture's true boxes (sizes in metres, as Group-Free writes them, the
 heading sign flipped for the two classes whose sign L2 flips back) and the
 poses the humans' true skeletons, so the L2 stage's pred labels
-(``instance-labels``) resemble the GT labels. Every scan lists the virtual
-``instrument`` too. Deterministic in ``seed``.
+(``instance-labels``) resemble the GT labels. The registered object scans
+(the furniture's GT geometry, which the Group-Free detection dataset turns
+into GT boxes) are points of each furniture box in its own frame, placed by
+the scan's pose; the two stationary tables keep their pose of the take's
+first scan. Every scan lists the virtual ``instrument`` too. Deterministic
+in ``seed``.
 
 :func:`add_camera_frames` gives every take of a root the six cameras'
 colour frames and the frames list the image branch reads
@@ -36,7 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
-from or4d_tpu_torch.config import LIMBS, OBJECT_LABEL_MAP, TAKE_SPLIT
+from or4d_tpu_torch.config import DEPTH_SCALING, LIMBS, OBJECT_LABEL_MAP, STATIONARY_OBJECTS, TAKE_SPLIT
 from or4d_tpu_torch.data.pcd_io import read_ply, write_pcd
 
 FURNITURE = {  # name: (center, size (l, w, h)) in mm
@@ -45,6 +52,8 @@ FURNITURE = {  # name: (center, size (l, w, h)) in mm
     "instrument_table": ((900.0, 450.0, -700.0), (1200.0, 900.0, 600.0)),
     "secondary_table": ((1100.0, 400.0, 900.0), (800.0, 800.0, 600.0)),
 }
+POSE_SUBDIR = "vs_0.01_rf_0.25_maxnn_500_ft_0.25"  # the L2 loader's default
+SCAN_POINTS = 400  # points of a registered object scan (the fixture's size)
 _FLIPPED = ("operating_table", "anesthesia_equipment")  # L2 flips their heading sign
 _SPLIT_FILE = {"train": "relationships_train.json", "val": "relationships_validation.json",
                "test": "relationships_test_dummy.json"}
@@ -91,15 +100,18 @@ def _box_points(rng: np.random.Generator, center, size, heading: float, n: int) 
 def write_scan(root: Path, take: int, scan: str, rng: np.random.Generator, n_staff: int,
                points_per_object: int, floor_points: int, compressed: bool):
     """One scan's pcd, GT labels, Group-Free boxes and poses; returns the
-    object names and the GT joints by name."""
+    object names, the GT joints by name and the furniture's 4x4 poses (mm)
+    by name."""
     pts, labels, colors = [], [], []
-    boxes, classes = [], []
+    boxes, classes, furniture = [], [], {}
     for name, (center, size) in FURNITURE.items():
         center = np.asarray(center) + rng.normal(scale=20.0, size=3) * [1, 0, 1]
         heading = float(rng.uniform(-0.3, 0.3))
         pts.append(_box_points(rng, center, size, heading, points_per_object))
         labels.append(np.full(points_per_object, OBJECT_LABEL_MAP[name]))
         colors.append(np.broadcast_to(rng.uniform(0.2, 0.9, 3), (points_per_object, 3)))
+        furniture[name] = np.eye(4)
+        furniture[name][:3, :3], furniture[name][:3, 3] = _rot_y(heading), center
         h = -heading if name in _FLIPPED else heading
         boxes.append(np.r_[center / 1000.0, np.asarray(size) / 1000.0, h])
         classes.append(OBJECT_LABEL_MAP[name])
@@ -128,7 +140,38 @@ def write_scan(root: Path, take: int, scan: str, rng: np.random.Generator, n_sta
         "classes_nms": np.asarray(classes), "bboxes_nms": np.stack(boxes),
         "scores_nms": rng.uniform(0.5, 1.0, len(classes))})
     np.save(root / "OR_4D_outputs" / f"pred_{take}_{scan}.npy", np.stack(list(joints.values())))
-    return list(FURNITURE) + list(joints) + ["instrument"], joints
+    return list(FURNITURE) + list(joints) + ["instrument"], joints, furniture
+
+
+def _scan_key(name: str, take: int) -> str:
+    return f"datasets/4D-OR/object_scans/{name}/{take}.ply"
+
+
+def _registered(pose: np.ndarray) -> np.ndarray:
+    """A pose (mm) as the release stores it: translation in depth units."""
+    t = pose.copy()
+    t[:3, 3] /= DEPTH_SCALING
+    return t
+
+
+def write_object_scans(root: Path, take: int, poses_by_scan: dict, rng: np.random.Generator) -> None:
+    """The take's registered furniture scans (``SCAN_POINTS`` points of each
+    box in its own frame, mm) and their poses: every furniture per scan, the
+    stationary tables once per take (from its first scan)."""
+    for name, (_center, size) in FURNITURE.items():
+        path = root / "object_scans" / name / f"{take}.ply"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_ply(path, _box_points(rng, np.zeros(3), size, 0.0, SCAN_POINTS).astype(np.float32))
+    poses_dir = root / "object_pose_results" / POSE_SUBDIR
+    poses_dir.mkdir(parents=True, exist_ok=True)
+    for scan, poses in poses_by_scan.items():
+        np.savez_compressed(poses_dir / f"{take}_{scan}.npz",
+                            {_scan_key(n, take): _registered(p) for n, p in poses.items()})
+    first = poses_by_scan[min(poses_by_scan)]
+    stationary = np.empty((len(STATIONARY_OBJECTS), 2), dtype=object)
+    for i, name in enumerate(STATIONARY_OBJECTS):
+        stationary[i] = [_scan_key(name, take), _registered(first[name])]
+    np.savez_compressed(poses_dir / f"{take}_stationary_objects.npz", stationary)
 
 
 def write_data_root(root, seed: int = 0, scans_per_take: int = 2, n_staff: int = 4,
@@ -139,16 +182,17 @@ def write_data_root(root, seed: int = 0, scans_per_take: int = 2, n_staff: int =
     for sub in ("instance_labels", "group_free_predictions", "OR_4D_outputs", "human_name_to_3D_joints"):
         (root / sub).mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
+    scan_rng = np.random.default_rng([seed, 1])  # the registered scans' own draws
     counts, compressed = {}, 0
     for split, takes in TAKE_SPLIT.items():
         scans = []
         for take in takes:
-            joints_by_scan = {}
+            joints_by_scan, poses_by_scan = {}, {}
             for i in range(scans_per_take):
                 scan = f"{i:06d}"
                 squeeze = (sum(counts.values()) + len(scans)) % 2 == 1
-                names, joints = write_scan(root, take, scan, rng, n_staff, points_per_object, floor_points,
-                                           compressed=squeeze)
+                names, joints, poses_by_scan[scan] = write_scan(root, take, scan, rng, n_staff, points_per_object,
+                                                                floor_points, compressed=squeeze)
                 compressed += squeeze
                 joints_by_scan[scan] = joints
                 objects = {str(k + 1): n for k, n in enumerate(sorted(names))}
@@ -161,6 +205,7 @@ def write_data_root(root, seed: int = 0, scans_per_take: int = 2, n_staff: int =
                 scans.append({"take_idx": take, "scan": scan, "objects": objects, "relationships": rels,
                               "human_idx_to_name": humans})
             np.savez_compressed(root / "human_name_to_3D_joints" / f"{take}_GT_True.npz", joints_by_scan)
+            write_object_scans(root, take, poses_by_scan, scan_rng)
         (root / _SPLIT_FILE[split]).write_text(json.dumps({"scans": scans}))
         counts[split] = len(scans)
     return {"scans": counts, "points_per_scan": (4 + 1 + n_staff) * points_per_object + floor_points,

@@ -2,7 +2,8 @@
 grouping with its backward (plane mode, plane mode with the FPS bound, raw
 mode), the serving path's multi-scale ball query and SA1 MLP on cached
 planes, and the bounds pre-pass (each a CUDA kernel beside its plain
-PyTorch version), and the plain index ball query.
+PyTorch version), and the plain index ball query; ``interpolate`` (3-NN)
+and ``box_geometry`` (oriented boxes, NMS) are plain PyTorch and numpy.
 
 Every kernel wrapper counts its launches in its module's ``LAUNCHES`` dict
 (``ball_query_group_gated`` in ``ball_query_group.LAUNCHES_GATED``);

@@ -13,7 +13,7 @@
   chain ``chip_smoke.py``'s disk phase drives on the card, at a tiny size;
 * the split defaults, the output name, the RANDOM INITIALIZATION warning,
   the vocabulary from the data root's classes.txt / relationships.txt and
-  the refusal of the modes not ported yet.
+  the refusal of the perception tasks not ported yet (the pose tasks).
 """
 
 import json
@@ -92,10 +92,13 @@ def test_cli_runs_from_the_fixture_on_the_cpu(tmp_path, monkeypatch, capsys):
         cli.main(["infer", *base])
 
 
-@pytest.mark.parametrize("mode,item", [("perception", "item 5")])
-def test_modes_not_ported_are_refused(mode, item):
-    with pytest.raises(SystemExit, match=f"not ported yet: Queue 1 {item}"):
-        cli.main([mode, "--device", "cpu"])
+@pytest.mark.parametrize("task,item", [("pose2d-train", "item 5b"), ("pose2d-infer", "item 5b"),
+                                       ("pose3d-train", "item 5b"), ("pose3d-infer", "item 5b")])
+def test_modes_not_ported_are_refused(task, item):
+    with pytest.raises(SystemExit, match=f"perception task '{task}' is not ported yet: Queue 1 {item}"):
+        cli.main(["perception", "--task", task, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="perception mode requires --task"):
+        cli.main(["perception", "--device", "cpu"])
 
 
 def test_whole_chain_from_a_synthetic_root(tmp_path, monkeypatch, capsys):

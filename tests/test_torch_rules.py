@@ -3,7 +3,8 @@
 * no module of ``or4d_tpu_torch`` (the train and ops modules included) and
   not ``chip_smoke.py`` imports jax, flax, optax or the JAX package;
 * entry points (``infer``, ``train``, ``serving``, and ``cli`` in every
-  mode that uses a device, with the L2 functions it calls) raise without a
+  mode that uses a device, ``perception``'s detect tasks among them, with
+  the L2 functions it calls) raise without a
   card unless they are given ``device="cpu"``; ``python -m or4d_tpu_torch.train
   --device cpu`` writes a finite history, and ``python -m
   or4d_tpu_torch.serving --device cpu`` prints a finite macro F1;
@@ -44,7 +45,9 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10 and all(f.exists() for f in files)
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("ops/floyd_warshall", "models/graphormer", "pipeline/role_graphormer", "pipeline/role_dataset",
-                   "train/graphormer_trainer", "utils/logging", "utils/visualize"):
+                   "train/graphormer_trainer", "utils/logging", "utils/visualize", "ops/box_geometry",
+                   "ops/interpolate", "models/groupfree", "models/groupfree_loss", "data/groupfree_dataset",
+                   "train/perception_trainers", "pipeline/perception_infer"):
         assert f"or4d_tpu_torch/{module}.py" in names, module
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -81,17 +84,20 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels", "graphormer-roles"])
+@pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels", "graphormer-roles",
+                                  "perception detect-train", "perception detect-infer"])
 def test_cli_device_modes_raise_without_a_card(no_card, tmp_path, mode):
     from or4d_tpu_torch import cli
 
     root = Path(__file__).parent / "golden" / "real_data"
     out = tmp_path / "out"
+    mode, *task = mode.split()
     args = [mode, "--config", "tiny", "--data-root", str(root), "--cache-dir", str(tmp_path / "c"),
             "--checkpoint-dir", str(tmp_path / "ck"), "--output", str(out), "--output-dir", str(out)]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(args)
+        cli.main(args + (["--task", *task] if task else []))
     assert not out.exists() and not (tmp_path / "c").exists() and not (tmp_path / "ck").exists()
+    assert not (root / "preprocessed_ret_dicts").exists()
 
 
 def test_l2_functions_raise_without_a_card(no_card, tmp_path):
