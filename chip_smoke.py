@@ -3,11 +3,12 @@
 NVIDIA GPU: the SGPN eval path, the SGPN train step (SA1 on its default raw
 path and with ``train_raw`` false; at the largest batch with ``remat``),
 the bounds pre-pass, FPS over 8192 points (the cluster kernel), Group-Free
-3D detection, Graphormer role prediction, the ``no_gt_image`` path
-(EfficientNet-B5 image branch),
+3D detection, Graphormer role prediction, the L1 pose models (HigherHRNet,
+VoxelPose), the ``no_gt_image`` path (EfficientNet-B5 image branch),
 serving mode (cached SA1 geometry) and the command line from disk to JSON
 (L2 instance labels, Group-Free detect-train / detect-infer, train,
 evaluate, infer, roles, graphormer-roles, phases, visualize;
+pose2d-train / -infer, pose3d-train / -infer, ``--poses-dir``;
 ``no_gt_image``; ``--from-gt`` on registered scans over 8192 points) at the
 paper's full widths.
 
@@ -75,6 +76,24 @@ phases) and its ``--device cpu`` L2 reference.
              ``track_to_batch`` a track and peak memory. No hand-written
              kernel sits on this path (plain PyTorch, as the JAX package's is
              ``jnp`` outside any Pallas kernel).
+5d. pose  — the L1 pose models at full width (``pose_phase``; no kernel
+             of the port runs in them, cuDNN convolutions with TF32 off):
+             HigherHRNet-W32 at 512 x 512, a B = 2 ``HigherHRNetTrainer``
+             step and a B = 1 forward with the aggregation on the card and
+             the HeatmapParser on the host; VoxelPose at the reference
+             geometry (6 views of 14 x 152 x 200 heatmaps from the
+             fixture's frame, an 80^3 root cube, 10 proposals of 56^3): the
+             eval forward and six ``VoxelPoseTrainer`` iterations (the
+             fourth must fire the root-cube accumulator); ms (host clock
+             around synchronised calls, mean of 5 or 10 after a warm-up),
+             peaks, busy share and launches (``profile_step``), and the
+             same ms with TF32 allowed. Card vs CPU from one seed:
+             HigherHRNet's forward at 128 x 128 (1e-4 of the largest);
+             VoxelPose at 24^3 / 16^3 / 3 proposals: the forward's proposal
+             set, scores, centres, poses and root cube (1e-4), no in-image
+             flips of the coarse grid, and one iteration's losses (1e-4)
+             and gradients (1e-2 of the largest) in a 500 mm space around
+             a person.
 6. check_train — the train grouping kernels (forward and backward: raw
              mode, plane mode, and plane mode with the FPS bound, SA1's
              grouping with ``train_raw`` false) against their plain versions
@@ -200,7 +219,13 @@ phases) and its ``--device cpu`` L2 reference.
              the process's peak RSS, losses and F1 (finite). Then, on the
              same root with the fixture's camera frames added to every take,
              ``train``, ``evaluate`` and ``infer`` with ``--config
-             no_gt_image``; and ``instance-labels --from-gt`` on a copy of
+             no_gt_image``; the pose chain (``pose_stages``: the
+             fixture's rig and the scans' skeletons as annotations,
+             ``perception --task pose2d-train``, ``pose2d-infer --split
+             val``, ``pose3d-train`` and ``pose3d-infer`` on its npz, then
+             ``instance-labels --poses-dir`` on the card and with
+             ``--device cpu``: labels equal but within 2 mm^2 of a
+             threshold^2); and ``instance-labels --from-gt`` on a copy of
              the fixture root whose two take-1 registered object scans are
              rewritten at 20,000 points, on the card and with ``--device
              cpu``: labels equal. Then row 2 at L2's recorded calls
@@ -1698,6 +1723,7 @@ DISK_KERNELS = {
     "evaluate_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
     "infer_image": ("fps.fps_bounds", "fps.fps", "sa_group_mlp.raw", "sa_group_mlp.plane"),
     "instance-labels-from-gt": ("fps.fps_large",),
+    "instance-labels-poses": ("fps.fps",),
     "detect-train": ("fps.fps_large", "fps.fps", "ball_query.multiscale"),
     "detect-infer": ("fps.fps_large", "fps.fps", "ball_query.multiscale"),
     "instance-labels-detect-boxes": ("fps.fps",),
@@ -1996,6 +2022,7 @@ def disk_phases(args, smi, results, stats) -> None:
         r = json.loads(rels_img.read_text())
         if sorted(r) != test_ids or not all(len(t) == 3 for v in r.values() for t in v):
             fail(f"no_gt_image infer: scan_relations keys {sorted(r)} are not the test scans {test_ids}")
+        pose = pose_stages(root, tmp, args.seed, log, stages, launches)
 
         # instance-labels --from-gt on the fixture's takes with two registered
         # object scans of take 1 rewritten at 20,000 points (the cluster FPS),
@@ -2042,7 +2069,7 @@ def disk_phases(args, smi, results, stats) -> None:
         # the process's peak since it started (earlier phases included)
         "process_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "train": history, "train_image": history_img, "relation_macro_f1": f1, "l2_vs_cpu": l2_diff,
-        "from_gt": from_gt, "files_written": written, "detect": detect,
+        "from_gt": from_gt, "files_written": written, "detect": detect, "pose": pose,
         "l2_launches_per_scan": launches["instance-labels"]["fps.fps"] / n_scans,
         "launches": {stage: {c: n for c, n in d.items() if n} for stage, d in launches.items()},
         "finite": finite,
@@ -2521,6 +2548,313 @@ def graphormer_phase(seed: int, smi: str, results: dict) -> None:
         fail(f"graphormer fit: losses do not fall over 3 epochs: {per_epoch}")
     del card, cpu, fitter, gb
     torch.cuda.empty_cache()
+
+
+POSE_TAKE = "export_holistic_take1_processed"  # the fixture's rig and frames
+POSE_REDUCED = dict(initial_cube=(24, 24, 24), fine_cube=(16, 16, 16), max_people=3)  # card vs CPU
+L2_HUMANS = 8  # human_0 .. human_7 in the label map
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean ms of ``reps`` calls of ``fn`` on the host clock, each ended by a
+    synchronise (train steps: each reads the loss on the host)."""
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return 1e3 * total / reps
+
+
+class tf32_allowed:
+    """The pose models' convolutions with cuDNN's TF32 allowed (they turn it
+    off themselves, and the script globally): for timing what that costs."""
+
+    def __enter__(self):
+        import contextlib
+
+        from or4d_tpu_torch.models import higherhrnet, voxelpose
+        from or4d_tpu_torch.train import perception_trainers
+
+        self.mods = (higherhrnet, voxelpose, perception_trainers)
+        self.saved = [m.no_tf32 for m in self.mods], torch.backends.cudnn.allow_tf32
+        for m in self.mods:
+            m.no_tf32 = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved[0]):
+            m.no_tf32 = f
+        torch.backends.cudnn.allow_tf32 = self.saved[1]
+
+
+def rel_max_diff(got, want) -> float:
+    """max |got - want| over the largest |want| (both moved to the CPU)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def pose_phase(seed: int, smi: str, results: dict) -> None:
+    """pose: the L1 pose models at full width on the card (no kernel of the
+    port runs in them: cuDNN convolutions, PyTorch gathers; TF32 off).
+
+    HigherHRNet (HRNet-W32, 14 joints + 14 tags) at the dataset's 512 x 512
+    input: a B = 2 ``HigherHRNetTrainer`` step (the CLI's batch) and a B = 1
+    eval forward with the aggregation on the card, then the reference
+    HeatmapParser on the host. VoxelPose at the reference geometry on the
+    fixture's rig and frames (6 views of 14 x 152 x 200 heatmaps, an 80^3
+    root cube over the 8 m space, 10 proposals of 56^3 over 2 m): the eval
+    forward and six ``VoxelPoseTrainer`` iterations in a row (the first a
+    warm-up; the fourth fires the root-cube accumulator). For each: ms
+    (host clock around synchronised calls, mean of 5 after a warm-up; the
+    forwards 10), peak memory and the device's busy share
+    (``profile_step``), and the same ms with TF32 allowed. Card vs CPU from
+    the same weights: the HigherHRNet eval forward at 128 x 128 (both heads
+    1e-4 of their largest value); VoxelPose at a reduced grid
+    (``POSE_REDUCED``): the eval forward (the proposal set equal, each
+    proposal's score, centre and pose and the root cube 1e-4 of their
+    largest; the coarse grid's in-image flips counted, none allowed) and
+    one iteration's losses (1e-4 relative) and gradients (1e-2 of the
+    largest: the train-mode V2Vs are ill-conditioned in float32, ROADMAP
+    Queue 3) with the space cut to 500 mm around a person, so every
+    proposal matches one."""
+    import numpy as np
+
+    from or4d_tpu_torch.data.voxelpose_dataset import VoxelPoseDataset, generate_3d_target
+    from or4d_tpu_torch.models.higherhrnet import HigherHRNet
+    from or4d_tpu_torch.models.voxelpose import compute_grid, project_points
+    from or4d_tpu_torch.pipeline.perception_infer import _hrnet_maps, _parse_people
+    from or4d_tpu_torch.train.perception_trainers import HigherHRNetTrainer, VoxelPoseTrainer, cameras_on
+
+    rng = np.random.default_rng(seed + 800)
+    out, ok = {"card": smi}, []
+    torch.cuda.empty_cache()
+
+    # HigherHRNet: a B = 2 train step and a B = 1 forward + grouping at 512^2
+    S, B, J = 512, 2, 14
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    hb = {"images": f32(rng.standard_normal((B, S, S, 3))), "gt_low": f32(rng.random((B, S // 4, S // 4, J))),
+          "gt_high": f32(rng.random((B, S // 2, S // 2, J))),
+          "joint_pos": torch.as_tensor(rng.integers(0, S // 4, (B, 10, J, 2)), device="cuda"),
+          "joint_valid": torch.as_tensor(rng.random((B, 10, J)) < 0.5, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    htr = HigherHRNetTrainer(device="cuda", seed=seed)
+    hstep = lambda: float(htr.train_step_from_batch(hb))
+    losses = [hstep()]
+    step_ms = host_ms(lambda: losses.append(hstep()), 5)
+    hrnet = {"input": S, "batch": B, "parameters": sum(p.numel() for p in htr.model.parameters()),
+             "step_ms": step_ms, "step_peak_bytes": torch.cuda.max_memory_allocated(), "step_losses": losses,
+             "step_profile": profile_step(hstep, step_ms)}
+    image = rng.standard_normal((S, S, 3)).astype(np.float32)
+    htr.model.eval()
+    _hrnet_maps(htr.model, image)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = host_ms(lambda: _hrnet_maps(htr.model, image), 10)
+    agg, tags = (t.cpu().numpy() for t in _hrnet_maps(htr.model, image))
+    t0 = time.perf_counter()
+    people = _parse_people(agg, tags, 10)
+    hrnet.update(forward_ms=fwd_ms, forward_peak_bytes=torch.cuda.max_memory_allocated(),
+                 forward_profile=profile_step(lambda: _hrnet_maps(htr.model, image), fwd_ms),
+                 grouping_host_ms=1e3 * (time.perf_counter() - t0), people=int(len(people)),
+                 maps_finite=bool(np.isfinite(agg).all() and np.isfinite(tags).all()))
+    with tf32_allowed():  # each warmed up first (cuDNN picks its TF32 algorithms)
+        hstep()
+        hrnet["step_ms_tf32"] = host_ms(hstep, 5)
+        _hrnet_maps(htr.model, image)
+        hrnet["forward_ms_tf32"] = host_ms(lambda: _hrnet_maps(htr.model, image), 10)
+    for prof in (hrnet["step_profile"], hrnet["forward_profile"]):
+        prof["top"] = prof["top"][:5]
+    ok.append(all(math.isfinite(x) for x in losses) and hrnet["maps_finite"])
+    del htr, hb
+    torch.cuda.empty_cache()
+    # card vs CPU at 128^2, the same weights (one seed, drawn on the CPU)
+    x = torch.from_numpy(rng.standard_normal((1, 128, 128, 3)).astype(np.float32))
+    with torch.no_grad():
+        got = HigherHRNet(device="cuda", seed=seed + 1)(x.cuda(), train=False)
+        t0 = time.perf_counter()
+        want = HigherHRNet(device="cpu", seed=seed + 1)(x, train=False)
+    hrnet["card_vs_cpu_128"] = {"low": rel_max_diff(got[0], want[0]), "high": rel_max_diff(got[1], want[1]),
+                                "cpu_seconds": time.perf_counter() - t0}
+    ok.append(max(hrnet["card_vs_cpu_128"]["low"], hrnet["card_vs_cpu_128"]["high"]) <= 1e-4)
+    out["higherhrnet"] = hrnet
+
+    # VoxelPose at the reference geometry on the fixture's frames
+    ds = VoxelPoseDataset(FIXTURE, "train", take_indices=[1])
+    samples = [ds.sample(i) for i in range(len(ds))]
+    cams, hs = cameras_on(ds.cameras, "cuda"), torch.as_tensor(ds.heatmap_scale, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    vtr = VoxelPoseTrainer(device="cuda", seed=seed)
+    hm = torch.as_tensor(samples[0]["input_heatmaps"], device="cuda")
+
+    def vfwd():
+        with torch.no_grad():
+            return vtr.model(hm, cams, hs, train=False)
+
+    poses, scores, _c, root = vfwd()
+    torch.cuda.synchronize()
+    vfwd_ms = host_ms(vfwd, 5)
+    vp = {"views": list(hm.shape), "root_cube": list(root.shape), "proposals": int(scores.shape[0]),
+          "forward_ms": vfwd_ms, "forward_peak_bytes": torch.cuda.max_memory_allocated(),
+          "forward_profile": profile_step(vfwd, vfwd_ms), "scores": scores.cpu().tolist(),
+          "forward_finite": bool(torch.isfinite(poses).all() and torch.isfinite(root).all())}
+    torch.cuda.reset_peak_memory_stats()
+    iters, accum = [], []
+    for i in range(6):
+        t0 = time.perf_counter()
+        loss, parts = vtr.train_step_from_sample(samples[i % len(samples)], cams, ds.heatmap_scale)
+        torch.cuda.synchronize()
+        iters.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": float(loss),
+                      "loss_cord": float(parts["loss_cord"]), "loss_3d": float(parts["loss_3d"])})
+        accum.append(float(vtr.accum3d_loss))
+    step_ms = sum(it["ms"] for it in iters[1:]) / 5
+    fired = accum[3] == 0.0 and accum[2] > 0.0  # the fourth iteration applied the accumulator
+    vp.update(step_ms=step_ms, iterations=iters, accum3d_loss=accum, accumulator_fired_on_4th=fired,
+              step_peak_bytes=torch.cuda.max_memory_allocated(),
+              step_profile=profile_step(lambda: vtr.train_step_from_sample(samples[0], cams, ds.heatmap_scale),
+                                        step_ms))
+    with tf32_allowed():
+        vfwd()
+        vp["forward_ms_tf32"] = host_ms(vfwd, 5)
+        vtr.train_step_from_sample(samples[1], cams, ds.heatmap_scale)
+        vp["step_ms_tf32"] = host_ms(lambda: vtr.train_step_from_sample(samples[1], cams, ds.heatmap_scale), 3)
+    for prof in (vp["forward_profile"], vp["step_profile"]):
+        prof["top"] = prof["top"][:5]
+    ok.append(vp["forward_finite"] and fired and all(math.isfinite(it["loss"]) for it in iters))
+    del vtr, hm
+    torch.cuda.empty_cache()
+
+    # card vs CPU at the reduced grid: the eval forward, then one iteration
+    ds3 = VoxelPoseDataset(FIXTURE, "train", take_indices=[1], max_people=3)
+    s3 = ds3.sample(0)
+    outs, inb = [], []
+    for dev in ("cpu", "cuda"):
+        tr = VoxelPoseTrainer(model_kwargs=POSE_REDUCED, device=dev, seed=seed + 2)
+        c = cameras_on(ds3.cameras, dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs.append([t.cpu() for t in tr.model(torch.as_tensor(s3["input_heatmaps"], device=dev), c,
+                                                   torch.as_tensor(ds3.heatmap_scale, device=dev), train=False)])
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t0
+        grid = compute_grid(tr.model.space_size, torch.tensor(tr.model.space_center), tr.model.initial_cube, dev)
+        inb.append(torch.stack([(xy[:, 0] >= 0) & (xy[:, 1] >= 0) & (xy[:, 0] < c["size"][v][0])
+                                & (xy[:, 1] < c["size"][v][1])
+                                for v in range(6) for xy in [project_points(grid, *(c[k][v] for k in "RTfc"))]]).cpu())
+    (p_c, s_c, c_c, r_c), (p_g, s_g, c_g, r_g) = outs
+    order = [int((c_c - cc).abs().sum(1).argmin()) for cc in c_g]
+    same_set = sorted(order) == list(range(len(order)))
+    fwd_check = {"inb_flips": int((inb[0] != inb[1]).sum()), "proposal_set_equal": same_set,
+                 "root": rel_max_diff(r_g, r_c), "cpu_forward_seconds": cpu_s}
+    if same_set:
+        fwd_check.update(centres=rel_max_diff(c_g, c_c[order]), scores=rel_max_diff(s_g, s_c[order]),
+                         poses=rel_max_diff(p_g, p_c[order]))
+    ok.append(same_set and fwd_check["inb_flips"] == 0
+              and max(v for k, v in fwd_check.items() if k in ("root", "centres", "scores", "poses")) <= 1e-4)
+    root0 = tuple(float(v) for v in s3["gt_roots"][0])
+    kw = dict(POSE_REDUCED, space_size=(500.0,) * 3, space_center=root0)
+    s3["target_3d"] = generate_3d_target(s3["gt_roots"][s3["gt_mask"]], kw["space_size"], root0, kw["initial_cube"])
+    grads, losses = [], []
+    for dev in ("cpu", "cuda"):
+        tr = VoxelPoseTrainer(model_kwargs=kw, device=dev, seed=seed + 3)
+        t = lambda k: torch.as_tensor(s3[k], device=dev)
+        lc, l3 = tr.losses(t("input_heatmaps"), cameras_on(ds3.cameras, dev),
+                           torch.as_tensor(ds3.heatmap_scale, device=dev), t("gt_roots"), t("gt_poses"),
+                           t("gt_vis"), t("gt_mask"), t("patient_mask"), t("target_3d"))
+        (lc + l3).backward()
+        losses.append((float(lc), float(l3)))
+        grads.append({k: p.grad.cpu() for k, p in tr.model.named_parameters() if p.grad is not None})
+    g_scale = max(float(g.abs().max()) for g in grads[0].values())
+    step_check = {"loss_cord": losses, "grad_max_abs": g_scale,
+                  "grad_rel_max_diff": max(float((grads[1][k] - g).abs().max()) for k, g in grads[0].items()) / g_scale,
+                  "loss_rel_diff": max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses[1], losses[0]))}
+    ok.append(losses[0][0] > 0 and step_check["loss_rel_diff"] <= 1e-4 and step_check["grad_rel_max_diff"] <= 1e-2)
+    vp["card_vs_cpu_reduced"] = {"grid": POSE_REDUCED, "forward": fwd_check, "iteration": step_check}
+    out["voxelpose"] = vp
+    emit({"phase": "pose", **out})
+    results["pose"] = out
+    if not all(ok):
+        fail(f"pose phase: a gate failed ({ok}): see the pose line")
+    torch.cuda.empty_cache()
+
+
+def pose_stages(root: Path, tmp: Path, seed: int, log: Path, stages: dict, launches: dict) -> dict:
+    """The pose chain from disk on ``root`` (after its camera frames): the
+    fixture's rig and the scans' skeletons as annotations
+    (``add_pose_annotations``), then on the card ``perception --task
+    pose2d-train`` (one epoch over 8 augmented images, batches of 2, a
+    checkpoint), ``pose2d-infer --split val`` from it
+    (``pred_or_4d_hrnet_coco_val.npz``: 24 frames, the HeatmapParser on
+    the host takes seconds a frame on random weights), ``pose3d-train
+    --split val --pred-pose2d`` on that npz (its 4 frames: the fourth fires
+    the accumulator) and ``pose3d-infer --split val --pred-pose2d``
+    (``pred_{take}_{frame}.npy``),
+    then ``instance-labels --poses-dir`` on those files (each cut to its
+    eight best people: L2's label map has eight humans), on the card (its
+    distance tests recorded) and with ``--device cpu``: the labels equal
+    but for points within ``L2_BOUNDARY_MM2`` of a threshold^2."""
+    import numpy as np
+
+    from or4d_tpu_torch.data.synthetic_root import add_pose_annotations
+    from or4d_tpu_torch.pipeline import instance_labels as il
+
+    add_pose_annotations(root, FIXTURE / POSE_TAKE)
+    hck, vck, poses = tmp / "ck_pose2d", tmp / "ck_pose3d", tmp / "poses"
+    base = ["perception", "--data-root", str(root), "--seed", str(seed)]
+    stages["pose2d_train"], launches["pose2d-train"], text = run_cli(
+        [*base, "--task", "pose2d-train", "--checkpoint-dir", str(hck), "--limit", "8"], log)
+    loss2d = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines() if "pose2d epoch" in line]
+    npz = tmp / "pred_or_4d_hrnet_coco_val.npz"
+    stages["pose2d_infer"], launches["pose2d-infer"], text = run_cli(
+        [*base, "--task", "pose2d-infer", "--checkpoint-dir", str(hck), "--split", "val", "--output", str(npz)], log)
+    pred = np.load(npz, allow_pickle=True)["arr_0"].item()
+    images = {"images": len(pred), "people": int(sum(len(v) for v in pred.values()))}
+    if "RANDOM INITIALIZATION" in text or not pred:
+        fail(f"pose2d-infer wrote nothing or ran without the checkpoint: {text}")
+    p3 = [*base, "--split", "val", "--pred-pose2d", str(npz), "--checkpoint-dir", str(vck)]
+    stages["pose3d_train"], launches["pose3d-train"], text = run_cli([*p3, "--task", "pose3d-train"], log)
+    loss3d = [float(line.split("loss=")[1].split()[0]) for line in text.splitlines() if "pose3d epoch" in line]
+    stages["pose3d_infer"], launches["pose3d-infer"], text = run_cli(
+        [*p3, "--task", "pose3d-infer", "--output-dir", str(poses)], log)
+    files = sorted(poses.glob("pred_*.npy"))
+    people = {p.name: int(len(np.load(p))) for p in files}
+    if not files or "RANDOM INITIALIZATION" in text:
+        fail(f"pose3d-infer wrote no pose files or ran without the checkpoint: {text}")
+    # L2's label map has eight humans (human_0-7, as the JAX package's and the
+    # reference's), and random weights put most of the ten proposals over the
+    # threshold: L2 gets each file's eight best (the files keep score order)
+    l2_poses = tmp / "poses_l2"
+    l2_poses.mkdir()
+    for p in files:
+        np.save(l2_poses / p.name, np.load(p)[:L2_HUMANS])
+    poses = l2_poses
+    tests, orig = [], il.close_mask
+
+    def close_rec(points, samples, bbox, threshold):
+        tests.append((samples.detach().double().cpu().numpy(), float(threshold)))
+        return orig(points, samples, bbox, threshold)
+
+    il.close_mask = close_rec
+    try:
+        stages["instance_labels_poses"], launches["instance-labels-poses"], _ = run_cli(
+            ["instance-labels", "--data-root", str(root), "--poses-dir", str(poses), "--output-dir",
+             str(tmp / "l2_pose")], log)
+    finally:
+        il.close_mask = orig
+    t0 = time.perf_counter()
+    run_cli(["instance-labels", "--data-root", str(root), "--poses-dir", str(poses), "--output-dir",
+             str(tmp / "l2_pose_cpu"), "--device", "cpu"], log)
+    stages["instance_labels_poses_cpu"] = time.perf_counter() - t0
+    diff = l2_label_diffs(tmp / "l2_pose" / "instance_labels_pred", tmp / "l2_pose_cpu" / "instance_labels_pred",
+                          root, tests)
+    human = {}
+    for p in files:
+        take, scan = p.stem[len("pred_"):].split("_")
+        labels = np.load(tmp / "l2_pose" / "instance_labels_pred" / f"{take}_{scan}.npz")["arr_0"]
+        human[p.name] = int((labels >= 0).sum())
+    return {"pose2d_epoch_losses": loss2d, "pose2d_infer": images, "pose3d_epoch_losses": loss3d,
+            "pose_files": people, "labelled_points_with_poses": human, "l2_vs_cpu": diff}
 
 
 # TPU rows 2 and 8 as the Group-Free detector calls them (SAVotes): row 2's
@@ -3008,6 +3342,7 @@ def main(argv=None) -> int:
     fps_large_phase(args.seed, smi, results, stats)
     groupfree_phase(args.seed, smi, results, stats)
     graphormer_phase(args.seed, smi, results)
+    pose_phase(args.seed, smi, results)
     train_phases(args, rec, smi, results, stats)
     remat_phases(args.seed, smi, results)
     image_phase(args.seed, smi, results, samples[:S])

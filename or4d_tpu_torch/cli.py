@@ -15,6 +15,13 @@ command (the counterpart of ``or4d_tpu/cli.py``).
   python -m or4d_tpu_torch.cli perception --task detect-train --data-root D --checkpoint-dir G
   python -m or4d_tpu_torch.cli perception --task detect-infer --data-root D --checkpoint-dir G \\
       --split test  # writes D/group_free_predictions/{take}_{scan}.npz
+  python -m or4d_tpu_torch.cli perception --task pose2d-train --data-root D --checkpoint-dir H
+  python -m or4d_tpu_torch.cli perception --task pose2d-infer --data-root D --checkpoint-dir H \\
+      --output P.npz  # pred_or_4d_hrnet_coco_{split}.npz
+  python -m or4d_tpu_torch.cli perception --task pose3d-train --data-root D --checkpoint-dir V \\
+      --pred-pose2d P.npz
+  python -m or4d_tpu_torch.cli perception --task pose3d-infer --data-root D --checkpoint-dir V \\
+      --pred-pose2d P.npz  # writes D/OR_4D_outputs/pred_{take}_{frame}.npy
 
 ``train``, ``evaluate``, ``infer``, ``instance-labels``,
 ``graphormer-roles`` and ``perception`` run on the card unless given
@@ -22,8 +29,8 @@ command (the counterpart of ``or4d_tpu/cli.py``).
 reference contracts: scan_relations json (main.py:111-115), role json
 (heuristic_based_role_prediction.py:392), phase_to_frames json
 (recognize_surgery_phase.py:182-189), Group-Free box npz
-(ap_helper.py:263-322). Of ``perception``'s tasks the Group-Free ones
-(``detect-train``, ``detect-infer``) are ported; the pose tasks are refused.
+(ap_helper.py:263-322), 2D pose npz (calculate_2d_human_pose.py:94-207),
+3D pose npy (get_human_poses_4D_OR.py:103-109).
 """
 
 from __future__ import annotations
@@ -34,12 +41,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# perception tasks of the JAX CLI that the port does not have yet, and the
-# ROADMAP Queue 1 items that bring them
-_POSE_ITEMS = "Queue 1 item 5b (HigherHRNet, VoxelPose) and item 5c (their trainers and inference)"
-_NOT_PORTED_TASKS = {task: _POSE_ITEMS for task in ("pose2d-train", "pose2d-infer", "pose3d-train", "pose3d-infer")}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="or4d_tpu_torch", description=__doc__.split("\n\n")[0])
@@ -84,6 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--boxes-dir", default=None, help="group_free_predictions npz dir")
     p.add_argument("--poses-dir", default=None, help="voxelpose pred_{take}_{frame}.npy dir")
     p.add_argument("--pcd-dir", default=None, help="fused point cloud dir ({take}_{scan}.pcd)")
+    # L1 pose stage
+    p.add_argument("--pred-pose2d", default=None, help="pose3d-*: HigherHRNet pred_or_4d_hrnet_coco_*.npz")
     return p
 
 
@@ -326,6 +329,91 @@ def run_instance_labels(args, device: torch.device) -> int:
     return 0
 
 
+def run_pose2d(args, device: torch.device) -> int:
+    """L1 HigherHRNet (tools/dist_train.py, calculate_2d_human_pose.py):
+    ``pose2d-train`` trains ``--epochs`` epochs of batches of
+    ``--batch-size`` (2) augmented images in the order
+    ``np.random.default_rng(seed + epoch)`` shuffles them to (``--limit``
+    images an epoch), saving a checkpoint after each; ``pose2d-infer``
+    writes ``--output`` (``pred_or_4d_hrnet_coco_{split}.npz``) for every
+    image of ``--split``. Both resume from ``--checkpoint-dir`` when it
+    holds a state; the checkpoint's step is the update count."""
+    from or4d_tpu_torch.data.higherhrnet_dataset import HigherHRNetDataset
+    from or4d_tpu_torch.train import checkpoint as ckpt
+    from or4d_tpu_torch.train.perception_trainers import HigherHRNetTrainer
+
+    split = args.split or "train"
+    tr = HigherHRNetTrainer(device=device, seed=args.seed)
+    ds = HigherHRNetDataset(args.data_root, split, augment=args.task == "pose2d-train")
+    if args.checkpoint_dir and ckpt.latest_step(args.checkpoint_dir) is not None:
+        tr.step = ckpt.restore(args.checkpoint_dir, tr.model, tr.optimizer)
+    elif args.task == "pose2d-infer":
+        where = args.checkpoint_dir or "(no --checkpoint-dir given)"
+        print(f"WARNING: no checkpoint found under {where}; pose2d-infer will run from RANDOM INITIALIZATION")
+    if args.task == "pose2d-infer":
+        from or4d_tpu_torch.pipeline.perception_infer import run_2d_inference_for_voxelpose
+
+        out = args.output or f"pred_or_4d_hrnet_coco_{split}.npz"
+        preds = run_2d_inference_for_voxelpose(tr.model, ds, out)
+        print(f"wrote {out} ({len(preds)} images)")
+        return 0
+    for epoch in range(args.epochs or 1):
+        losses = [float(tr.train_step_from_batch(b)) for b in
+                  ds.batches(args.batch_size or 2, shuffle=True, seed=args.seed + epoch, limit=args.limit)]
+        print(f"pose2d epoch {epoch}: loss={np.mean(losses):.4f} ({len(losses)} steps)")
+        if args.checkpoint_dir:
+            ckpt.save(args.checkpoint_dir, tr.model, tr.optimizer, tr.step)
+    return 0
+
+
+def run_pose3d(args, device: torch.device) -> int:
+    """L1 VoxelPose (run/train_3d.py, get_human_poses_4D_OR.py):
+    ``pose3d-train`` trains ``--epochs`` epochs over the first ``--limit``
+    frames of ``--split`` in order, one frame a step, input heatmaps from
+    ``--pred-pose2d`` where it has the frame (else rendered from the GT),
+    saving a checkpoint after each epoch; ``pose3d-infer`` writes
+    ``pred_{take}_{frame}.npy`` under ``--output-dir`` (default
+    ``<data-root>/OR_4D_outputs``) for every frame with a person. Both
+    resume from ``--checkpoint-dir`` (the step is the iteration count, the
+    root-cube accumulator restored with it)."""
+    from or4d_tpu_torch.data.voxelpose_dataset import VoxelPoseDataset
+    from or4d_tpu_torch.train import checkpoint as ckpt
+    from or4d_tpu_torch.train.perception_trainers import VoxelPoseTrainer, cameras_on
+
+    split = args.split or "train"
+    infer = args.task == "pose3d-infer"
+    ds = VoxelPoseDataset(args.data_root, split, pred_pose2d_path=args.pred_pose2d, inference=infer)
+    tr = VoxelPoseTrainer(device=device, seed=args.seed)
+    extra: dict = {}
+    if args.checkpoint_dir and ckpt.latest_step(args.checkpoint_dir) is not None:
+        tr.step = ckpt.restore(args.checkpoint_dir, tr.model, tr.optimizer, extra)
+        tr.accum3d = list(extra.get("accum3d", tr.accum3d))
+        tr.accum3d_loss = extra.get("accum3d_loss", tr.accum3d_loss)
+    elif infer:
+        where = args.checkpoint_dir or "(no --checkpoint-dir given)"
+        print(f"WARNING: no checkpoint found under {where}; pose3d-infer will run from RANDOM INITIALIZATION")
+    if infer:
+        from or4d_tpu_torch.pipeline.perception_infer import run_3d_pose_inference_for_take
+
+        out_dir = Path(args.output_dir or (Path(args.data_root) / "OR_4D_outputs"))
+        total = 0
+        for take_idx in sorted({rec["take_idx"] for rec in ds.db}):
+            n = run_3d_pose_inference_for_take(tr.model, ds, take_idx, out_dir)
+            print(f"take {take_idx}: {n} pred_*.npy frames -> {out_dir}")
+            total += n
+        print(f"wrote {total} pose files")
+        return 0
+    cameras = cameras_on(ds.cameras, device)
+    n = min(len(ds), args.limit) if args.limit else len(ds)
+    for epoch in range(args.epochs or 1):
+        losses = [float(tr.train_step_from_sample(ds.sample(i), cameras, ds.heatmap_scale)[0]) for i in range(n)]
+        print(f"pose3d epoch {epoch}: loss={np.mean(losses):.4f} ({len(losses)} frames)")
+        if args.checkpoint_dir:
+            ckpt.save(args.checkpoint_dir, tr.model, tr.optimizer, tr.step,
+                      {"accum3d": tr.accum3d, "accum3d_loss": tr.accum3d_loss})
+    return 0
+
+
 def run_perception(args, device: torch.device) -> int:
     """L1 Group-Free detection (train_OR.py, infer.py): ``detect-train``
     trains ``--epochs`` epochs of batches of ``--batch-size`` scans in the
@@ -334,6 +422,10 @@ def run_perception(args, device: torch.device) -> int:
     ``{take}_{scan}.npz`` box files for every scan of ``--split``. Both
     resume from ``--checkpoint-dir`` when it holds a state. The
     checkpoint's step is the update count (the JAX CLI names it by epoch)."""
+    if args.task.startswith("pose2d"):
+        return run_pose2d(args, device)
+    if args.task.startswith("pose3d"):
+        return run_pose3d(args, device)
     from or4d_tpu_torch.data.groupfree_dataset import GroupFreeDetectionDataset
     from or4d_tpu_torch.train import checkpoint as ckpt
     from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
@@ -453,12 +545,8 @@ def main(argv: list[str] | None = None) -> int:
     from or4d_tpu_torch.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    if args.mode == "perception":
-        if args.task is None:
-            raise SystemExit("perception mode requires --task")
-        if args.task in _NOT_PORTED_TASKS:
-            raise SystemExit(f"or4d_tpu_torch: perception task {args.task!r} is not ported yet: "
-                             f"{_NOT_PORTED_TASKS[args.task]}")
+    if args.mode == "perception" and args.task is None:
+        raise SystemExit("perception mode requires --task")
     if args.mode == "roles":
         return run_roles(args)
     if args.mode == "phases":

@@ -13,7 +13,11 @@ mismatches raise. ``graphormer_from_jax_params(params, model)`` does the
 same for the role-prediction Graphormer, and
 ``groupfree_from_jax_variables(variables, model)`` for the Group-Free
 detector (flax attention's per-head kernels flattened to the port's Dense
-layout).
+layout), and ``higherhrnet_from_jax_variables`` /
+``voxelpose_from_jax_variables`` for the pose models (convolution kernels
+(*k, in, out) -> (out, in, *k); a transposed convolution's -> (in, out, *k)
+flipped in every spatial axis, since flax's ``ConvTranspose`` does not flip
+its kernel and ``F.conv_transpose{2,3}d`` does).
 """
 
 from __future__ import annotations
@@ -130,3 +134,44 @@ def groupfree_from_jax_variables(variables: Mapping, model: nn.Module) -> dict[s
             node[path[-1]] = _flat_attention(path, np.array(leaf, dtype=np.float32))  # a writable copy
         flat[collection] = tree
     return from_jax_variables(flat, model)
+
+
+def _conv_from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The state_dict of a model of ``ConvNd`` and ``FlaxBatchNorm`` layers
+    whose module paths are the flax tree's, in the model's own dtype (a
+    float64 copy of a model takes float64 leaves at full precision)."""
+    from or4d_tpu_torch.models.layers import ConvNd
+
+    out: dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            name = _LEAF.get((collection, path[-1]))
+            if name is None:
+                raise KeyError(f"unknown leaf {collection}/{'/'.join(path)}")
+            arr = np.asarray(leaf)
+            if path[-1] == "kernel":
+                conv = model.get_submodule(".".join(path[:-1]))
+                if not isinstance(conv, ConvNd):
+                    raise KeyError(f"{'/'.join(path)}: not a convolution in the model")
+                nd = arr.ndim - 2
+                spatial = tuple(range(nd))
+                if conv.transpose:
+                    arr = np.flip(arr.transpose((nd, nd + 1) + spatial), axis=tuple(range(2, nd + 2)))
+                else:
+                    arr = arr.transpose((nd + 1, nd) + spatial)
+            out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    return _matched(out, model)
+
+
+def higherhrnet_from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The state_dict of the port's ``HigherHRNet`` from the flax variables
+    of ``or4d_tpu.models.higherhrnet.HigherHRNet``. Missing or extra keys
+    and shape mismatches raise."""
+    return _conv_from_jax_variables(variables, model)
+
+
+def voxelpose_from_jax_variables(variables: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The state_dict of the port's ``VoxelPose`` from the flax variables of
+    ``or4d_tpu.models.voxelpose.VoxelPose``. Missing or extra keys and shape
+    mismatches raise."""
+    return _conv_from_jax_variables(variables, model)

@@ -31,7 +31,11 @@ in ``seed``.
 colour frames and the frames list the image branch reads
 (``colorimage/camera0{c}_colorimage-{i}.jpg``,
 ``timestamp_to_pcd_and_frames_list.json``), copied from a directory of
-jpgs; :func:`densify_object_scan` rewrites a registered object scan
+jpgs; :func:`add_pose_annotations` then gives each take what the pose tasks
+read: the rig (``camera0{c}.json``, copied from a directory of them), the
+skeletons of each scan in the release's pose-tool coordinates
+(``annotations/{pcd}.json``) and projected into each camera, in the pixels
+of the take's frames (``2D_keypoint_annotations.json``); :func:`densify_object_scan` rewrites a registered object scan
 (``object_scans/{name}/{take}.ply``) with more points, for clouds over the
 8192 points of the single-block FPS kernel.
 """
@@ -231,6 +235,69 @@ def add_camera_frames(root, frames_dir, scans_per_take: int = 2) -> int:
         entries = [[f"ts_{k:06d}", {"pcd": f"{k:06d}", **{f"color_{c}": indices[k % len(indices)]
                                                           for c in range(1, 7)}}] for k in range(scans_per_take)]
         (tdir / "timestamp_to_pcd_and_frames_list.json").write_text(json.dumps(entries))
+    return len(takes)
+
+
+def _to_pose_tool(joints: np.ndarray) -> np.ndarray:
+    """OR-4D frame -> the pose tool's (helpers/utils.py:13-34)."""
+    a = np.asarray(joints, np.float64)[:, [0, 2, 1]]
+    a[:, 1] *= -1
+    a[:, 2] -= 1000
+    return a / 25
+
+
+def add_pose_annotations(root, cameras_dir) -> int:
+    """Copy ``camera0{1..6}.json`` of ``cameras_dir`` into every take of
+    ``root`` (after :func:`add_camera_frames`) and write each listed scan's
+    GT skeletons (``human_name_to_3D_joints/{take}_GT_True.npz``) as the
+    pose tool's ``annotations/{pcd}.json`` and as
+    ``2D_keypoint_annotations.json``: per ``{pcd}_{camera}`` one entry a
+    person, the 14 joints projected into the camera (the VoxelPose
+    projection of the rig) and scaled to the width of the take's frames,
+    visibility 2 inside the release's 2048 x 1536 image and 0 outside, and
+    the keypoints' box. Returns the number of takes."""
+    import shutil
+
+    from or4d_tpu_torch.config import IDX_TO_BODY_PART
+    from or4d_tpu_torch.data.cameras import cam_infos_to_voxelpose, load_cam_infos
+    from or4d_tpu_torch.data.jpeg import read_jpeg
+    from or4d_tpu_torch.data.voxelpose_dataset import IMAGE_SIZE, project_to_camera
+
+    root = Path(root)
+    takes = sorted(int(p.name[len("export_holistic_take"):-len("_processed")])
+                   for p in root.glob("export_holistic_take*_processed"))
+    for take in takes:
+        tdir = root / f"export_holistic_take{take}_processed"
+        for c in range(1, 7):
+            shutil.copyfile(Path(cameras_dir) / f"camera0{c}.json", tdir / f"camera0{c}.json")
+        cameras = cam_infos_to_voxelpose(load_cam_infos(tdir))
+        frames = json.loads((tdir / "timestamp_to_pcd_and_frames_list.json").read_text())
+        first = tdir / "colorimage" / f"camera01_colorimage-{frames[0][1]['color_1']}.jpg"
+        scale = read_jpeg(first).shape[1] / IMAGE_SIZE[0]
+        joints_by_scan = np.load(root / "human_name_to_3D_joints" / f"{take}_GT_True.npz",
+                                 allow_pickle=True)["arr_0"].item()
+        (tdir / "annotations").mkdir(exist_ok=True)
+        keypoints = {}
+        for idx, (_, channels) in enumerate(frames):
+            pcd = channels["pcd"]
+            people = joints_by_scan[pcd]
+            labels = [{"humanName": name, "jointName": part,
+                       "point3d": {"location": dict(zip("xyz", map(float, xyz)))}}
+                      for name, joints in people.items()
+                      for part, xyz in zip(IDX_TO_BODY_PART, _to_pose_tool(joints))]
+            (tdir / "annotations" / f"{pcd}.json").write_text(json.dumps({"labels": labels}))
+            for c in range(1, 7):
+                entries = []
+                for name, joints in people.items():
+                    xy = project_to_camera(np.asarray(joints, np.float64), cameras, c - 1)
+                    vis = 2.0 * ((xy[:, 0] >= 0) & (xy[:, 0] <= IMAGE_SIZE[0] - 1)
+                                 & (xy[:, 1] >= 0) & (xy[:, 1] <= IMAGE_SIZE[1] - 1))
+                    xy = xy * scale
+                    (x0, y0), (x1, y1) = xy.min(axis=0), xy.max(axis=0)
+                    entries.append({"keypoints": np.concatenate([xy, vis[:, None]], axis=1).reshape(-1).tolist(),
+                                    "bbox": [x0, y0, x1 - x0, y1 - y0], "human_name": name})
+                keypoints[f"{idx:06d}_{c}"] = entries
+        (tdir / "2D_keypoint_annotations.json").write_text(json.dumps(keypoints))
     return len(takes)
 
 

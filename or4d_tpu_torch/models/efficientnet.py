@@ -32,14 +32,13 @@ so :mod:`or4d_tpu_torch.convert` maps one onto the other; a flax kernel
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from or4d_tpu_torch.models.layers import Dense
+from or4d_tpu_torch.models.layers import Dense, no_tf32, same_pad
 
 # EfficientNet-B0 base: (expand, channels, repeats, stride, kernel)
 _BASE = [
@@ -67,26 +66,6 @@ def _round_channels(c: float, mult: float, divisor: int = 8) -> int:
 
 def _round_repeats(r: int, mult: float) -> int:
     return int(math.ceil(mult * r))
-
-
-def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """flax/TF "SAME" padding of NCHW ``x`` for a k x k window at stride s:
-    total = max((ceil(n / s) - 1) * s + k - n, 0) a side, the odd pixel after."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last axis first
-        total = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _weight(shape, device, generator, fan_in: int) -> nn.Parameter:
@@ -193,14 +172,14 @@ class EfficientNetB5(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The frozen part, up to ``conv_head``'s input (no autograd graph)."""
-        with torch.no_grad(), _no_tf32():
+        with torch.no_grad(), no_tf32():
             h = F.silu(self.bn_stem(self.conv_stem(x)))
             for name in self.blocks:
                 h = getattr(self, name)(h)
         return h
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        with _no_tf32():
+        with no_tf32():
             h = F.silu(self.bn_head(self.conv_head(h)))
         return h.mean(dim=(2, 3))
 

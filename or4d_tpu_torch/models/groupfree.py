@@ -60,9 +60,11 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s rounded as a division (JAX's), not as a product with 1/s (what
-    PyTorch's CUDA division by a Python scalar computes)."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    """x / s as XLA compiles a division by a constant (the JAX package's
+    jitted trainer and forward): a product with 1/s, the reciprocal
+    correctly rounded in x's dtype. The same bits on the card and the CPU."""
+    one, d = np.ones((), torch.empty((), dtype=x.dtype).numpy().dtype), s
+    return x * torch.tensor(one / one.dtype.type(d), dtype=x.dtype, device=x.device)
 
 
 def mean_sizes(mean_size_arr, device) -> torch.Tensor:
@@ -107,8 +109,9 @@ class FPStage(nn.Module):
 
     def forward(self, unknown_xyz, known_xyz, unknown_feats, known_feats, train: bool = False):
         dist, idx = three_nn(unknown_xyz, known_xyz)
-        recip = 1.0 / (dist + 1e-8)
-        weight = recip / recip.sum(dim=2, keepdim=True)
+        # recip / sum(recip) as XLA simplifies it: (1 / x) / s -> 1 / (x * s)
+        d = dist + 1e-8
+        weight = 1.0 / (d * (1.0 / d).sum(dim=2, keepdim=True))
         h = three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:
             h = torch.cat([h, unknown_feats], dim=-1)

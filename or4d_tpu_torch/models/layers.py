@@ -16,11 +16,13 @@ weight is stored (out, in), the transpose of a flax kernel.
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Sequence
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -220,3 +222,85 @@ class MLP(nn.Module):
             if i < n - 1 or self.on_last:
                 x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
         return x
+
+
+def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """flax/TF "SAME" padding of channels-first ``x`` (N, C, *spatial) for a
+    window of k per spatial axis at stride s: total = max((ceil(n / s) - 1)
+    * s + k - n, 0) a side, the odd pixel after (what ``lax`` pads; a
+    symmetric ``padding=`` of a strided convolution is not)."""
+    pads = []
+    for n in reversed(x.shape[2:]):  # F.pad takes the last axis first
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions in full float32 (PyTorch lets them take TF32 by
+    default; the JAX reference is float32)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class ConvNd(nn.Module):
+    """A flax ``nn.Conv`` / ``nn.ConvTranspose`` over ``nd`` (2 or 3) spatial
+    axes of a channels-first input, "SAME" padded, k per axis, one stride. The
+    weight is (out, in, *k) for a convolution and (in, out, *k), as
+    ``F.conv_transpose{nd}d`` takes it, for a transposed one; normal with
+    std 1/sqrt(fan_in), drawn on the CPU from ``generator``. A stride-1
+    odd window pads symmetrically inside the convolution; a strided one
+    goes through :func:`same_pad` (the odd pixel after); a transposed one
+    with stride s pads (k - s) / 2 a side, flax's "SAME" output size."""
+
+    def __init__(self, nd: int, cin: int, cout: int, k: int, stride: int = 1, bias: bool = True,
+                 transpose: bool = False, device=None, generator=None):
+        super().__init__()
+        self.nd, self.k, self.stride, self.transpose = nd, k, stride, transpose
+        shape = ((cin, cout) if transpose else (cout, cin)) + (k,) * nd
+        w = torch.empty(shape).normal_(0.0, 1.0 / math.sqrt(cin * k ** nd), generator=generator)
+        self.weight = nn.Parameter(w.to(device))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) if bias else None
+        if transpose and (k - stride) % 2:
+            raise ValueError(f"transposed conv: k - stride must be even, got k={k}, stride={stride}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.transpose:
+            conv = {2: F.conv_transpose2d, 3: F.conv_transpose3d}[self.nd]
+            return conv(x, self.weight, self.bias, self.stride, (self.k - self.stride) // 2)
+        conv = {2: F.conv2d, 3: F.conv3d}[self.nd]
+        if self.stride == 1 and self.k % 2:
+            return conv(x, self.weight, self.bias, 1, self.k // 2)
+        return conv(same_pad(x, self.k, self.stride), self.weight, self.bias, self.stride, 0)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over every axis but the channels (axis 1 of a
+    channels-first input). Train mode normalizes with the biased batch
+    moments (``F.batch_norm``) and sets the running statistics to
+    ``momentum * running + (1 - momentum) * batch``, the batch variance
+    biased (flax's; PyTorch's own BN takes the unbiased one and momentum
+    0.1). Eval mode normalizes with the running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.99, device=None):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=[0, *range(2, x.dim())], correction=0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

@@ -1,7 +1,8 @@
 """Checkpoint / resume with ``torch.save`` (the JAX package uses orbax,
 ``or4d_tpu/train/checkpoint.py``): one file per step holding the model's
 state_dict (parameters and BN running statistics), the optimizer's
-state_dict and the step. Loading reads tensors and plain containers only
+state_dict, the step and, where the trainer has more state (VoxelPose's
+root-cube gradient accumulator), an ``extra`` dict of tensors. Loading reads tensors and plain containers only
 (``weights_only=True``).
 """
 
@@ -16,12 +17,14 @@ _NAME = "step_{:08d}.pt"
 _PATTERN = re.compile(r"step_(\d{8})\.pt$")
 
 
-def save(directory: str | Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int) -> Path:
+def save(directory: str | Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int,
+         extra: dict | None = None) -> Path:
     path = Path(directory)
     path.mkdir(parents=True, exist_ok=True)
     out = path / _NAME.format(step)
     tmp = out.with_suffix(".tmp")
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": int(step)}, tmp)
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": int(step),
+                "extra": extra or {}}, tmp)
     tmp.replace(out)
     return out
 
@@ -35,9 +38,11 @@ def latest_step(directory: str | Path) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str | Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer | None = None) -> int:
+def restore(directory: str | Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer | None = None,
+            extra: dict | None = None) -> int:
     """Load the latest saved step into ``model`` and ``optimizer``, each on
-    its own device; returns the step."""
+    its own device, and the saved ``extra`` into the given dict; returns
+    the step."""
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -46,4 +51,6 @@ def restore(directory: str | Path, model: torch.nn.Module, optimizer: torch.opti
     model.load_state_dict(state["model"])
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
+    if extra is not None:
+        extra.update(state.get("extra", {}))
     return int(state["step"])

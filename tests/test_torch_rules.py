@@ -9,7 +9,11 @@
   --device cpu`` writes a finite history, and ``python -m
   or4d_tpu_torch.serving --device cpu`` prints a finite macro F1;
 * a kernel build with no compiler raises (no plain-version fallback);
-* the weight converter raises on a missing or an extra key.
+* the weight converter raises on a missing or an extra key;
+* no module of the port (nor ``chip_smoke.py``) imports OpenCV or PIL, which
+  the card's machine does not have; the pose tasks of the CLI raise without
+  a card too; and the port's CLI takes every mode and task of the JAX CLI
+  (nothing is refused as not ported).
 """
 
 import ast
@@ -85,7 +89,9 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["train", "evaluate", "infer", "instance-labels", "graphormer-roles",
-                                  "perception detect-train", "perception detect-infer"])
+                                  "perception detect-train", "perception detect-infer",
+                                  "perception pose2d-train", "perception pose2d-infer",
+                                  "perception pose3d-train", "perception pose3d-infer"])
 def test_cli_device_modes_raise_without_a_card(no_card, tmp_path, mode):
     from or4d_tpu_torch import cli
 
@@ -210,3 +216,41 @@ def test_paired_pack_rejects_unshared_batch():
         SlotPack.build(batch, bucket=8, paired=True)
     pack = SlotPack.build(batch, bucket=8)
     assert pack.pair_idx is None and int(pack.edge_valid.sum()) == 12
+
+
+def test_port_imports_no_opencv_or_pil():
+    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("data/cameras", "data/voxelpose_dataset", "data/higherhrnet_dataset", "models/voxelpose",
+                   "models/higherhrnet", "pipeline/ae_grouping", "train/pose_metrics"):
+        assert f"or4d_tpu_torch/{module}.py" in names, module
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("cv2", "PIL")]
+    assert not bad, bad
+
+
+def test_cli_takes_every_mode_and_task_of_the_jax_cli():
+    import or4d_tpu_torch.cli as tcli
+
+    def choices(parser, dest):
+        return set(next(a for a in parser._actions if a.dest == dest).choices)
+
+    jax_parser = _jax_cli_parser()
+    port = tcli.build_parser()
+    assert choices(jax_parser, "mode") <= choices(port, "mode")
+    assert choices(jax_parser, "task") <= choices(port, "task")
+    assert not hasattr(tcli, "_NOT_PORTED_TASKS")
+    assert {a.dest for a in jax_parser._actions} <= {a.dest for a in port._actions}
+
+
+def _jax_cli_parser():
+    """The JAX CLI's parser, read from its source (this file imports no
+    JAX): ``build_parser`` executed with argparse only."""
+    import argparse
+
+    src = (ROOT / "or4d_tpu" / "cli.py").read_text()
+    tree = ast.parse(src)
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "build_parser")
+    scope = {"argparse": argparse, "__doc__": ast.get_docstring(tree) or ""}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "or4d_tpu/cli.py", "exec"), scope)
+    return scope["build_parser"]()
