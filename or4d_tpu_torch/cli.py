@@ -25,7 +25,15 @@ command (the counterpart of ``or4d_tpu/cli.py``).
 
 ``train``, ``evaluate``, ``infer``, ``instance-labels``,
 ``graphormer-roles`` and ``perception`` run on the card unless given
-``--device cpu``, and raise without one. Interchange formats are the
+``--device cpu``, and raise without one. ``train``, ``evaluate`` and
+``infer`` run data-parallel under ``torchrun`` (``WORLD_SIZE`` > 1):
+
+  torchrun --nproc_per_node=D -m or4d_tpu_torch.cli train --config C.json ...
+
+with ``"TPU": {"mesh_data": D}`` in C.json (-1, the default, takes every
+rank): one rank a card under ``nccl`` (``LOCAL_RANK`` picks it), or ranks
+on the CPU under ``gloo`` with ``--device cpu``; only rank 0 prints and
+writes outputs. Interchange formats are the
 reference contracts: scan_relations json (main.py:111-115), role json
 (heuristic_based_role_prediction.py:392), phase_to_frames json
 (recognize_surgery_phase.py:182-189), Group-Free box npz
@@ -37,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -462,6 +471,28 @@ def run_perception(args, device: torch.device) -> int:
     return 0
 
 
+def _init_process_group(device: torch.device) -> torch.device:
+    """The process group of a ``torchrun`` launch (its env:// variables):
+    ``nccl`` with this rank on card ``LOCAL_RANK``, or ``gloo`` on the CPU;
+    returns this rank's device."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return device
+
+
+def _is_lead() -> bool:
+    """Rank 0 of a data-parallel run, or a run of one process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def run_sgpn(args, device: torch.device) -> int:
     """train / evaluate / infer of the SGPN scene-graph model from disk."""
     from or4d_tpu_torch.config import load_config
@@ -473,8 +504,10 @@ def run_sgpn(args, device: torch.device) -> int:
     cfg = load_config(args.config)
     # vocab from data files when shipped, embedded defaults otherwise
     vocab = Vocab.from_files(args.data_root) if (Path(args.data_root) / "classes.txt").exists() else DEFAULT_VOCAB
+    lead = _is_lead()
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"device: {device} ({name})")
+    if lead:
+        print(f"device: {device} ({name})")
 
     ds_kw = dict(data_root=args.data_root, cache_dir=args.cache_dir, synthetic_fallback=not args.strict_data)
     train_ds = ORDataset(cfg, "train", vocab, **ds_kw)
@@ -515,7 +548,8 @@ def run_sgpn(args, device: torch.device) -> int:
             checkpoint_dir=args.checkpoint_dir,
             serving_val=args.serving,
         )
-        print(json.dumps(history[-1]))
+        if lead:
+            print(json.dumps(history[-1]))
     elif args.mode == "evaluate":
         split = args.split or "val"
         # pair_shared: eval crops are direction-invariant by construction, so
@@ -527,17 +561,19 @@ def run_sgpn(args, device: torch.device) -> int:
 
             ev = ServingEvaluator(trainer, eval_ds.batches(batch_size, limit=args.limit),
                                   cache_dir=args.serving_cache_dir)
-            f1 = ev.evaluate(verbose=True)
+            f1 = ev.evaluate(verbose=lead)
         else:
-            f1 = trainer.evaluate(eval_ds.batches(batch_size, limit=args.limit), verbose=True)
-        print(json.dumps({"split": split, "relation_macro_f1": f1}))
+            f1 = trainer.evaluate(eval_ds.batches(batch_size, limit=args.limit), verbose=lead)
+        if lead:
+            print(json.dumps({"split": split, "relation_macro_f1": f1}))
     else:  # infer
         split = args.split or "test"
         eval_ds = ORDataset(cfg, split, vocab, for_eval=True, **ds_kw)
         scan_relations = trainer.predict_relations(eval_ds.batches(batch_size, limit=args.limit))
         out = args.output or f"scan_relations_{cfg.name}_{split}.json"
-        Path(out).write_text(json.dumps(scan_relations))
-        print(f"wrote {out} ({len(scan_relations)} scans)")
+        if lead:
+            Path(out).write_text(json.dumps(scan_relations))
+            print(f"wrote {out} ({len(scan_relations)} scans)")
     return 0
 
 
@@ -556,6 +592,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.mode == "visualize":
         return run_visualize(args)
     device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.mode not in ("train", "evaluate", "infer"):
+            raise ValueError(f"{args.mode} runs in one process; under torchrun only train, evaluate and infer "
+                             "run data-parallel")
+        import torch.distributed as dist
+
+        device = _init_process_group(device)
+        try:
+            return run_sgpn(args, device)
+        finally:
+            dist.destroy_process_group()
     if args.mode == "instance-labels":
         return run_instance_labels(args, device)
     if args.mode == "graphormer-roles":

@@ -157,9 +157,16 @@ class TPUConfig:
     dW0 = x^T @ dA, and the features get their gradient through A). Its
     sort, gate and packing knobs (``packed_slots``, ``per_scale_sort``,
     ``eval_subtile``, ``train_per_scale_sort``) only change speed on a TPU
-    and have no counterpart here."""
+    and have no counterpart here.
+
+    ``mesh_data`` x ``mesh_model`` is the (dp, mp) mesh of ranks that
+    ``parallel.make_mesh`` builds on ``torch.distributed``: scenes over dp,
+    the object and edge slot axes over mp; -1 takes every rank of the
+    world left over by ``mesh_model`` (or4d_tpu/config.py:146-147)."""
 
     scene_batch: int = 8           # scenes per global step (reference: 1)
+    mesh_data: int = -1            # data-parallel mesh axis size; -1 = all ranks
+    mesh_model: int = 1            # edge/object-axis model-parallel size
     compute_dtype: str = "float32"  # "bfloat16" for the matmul-heavy path
     train_raw: bool = True         # or4d_tpu/config.py:172
     # recompute the SA stages' BN/ReLU/dense chains in the backward instead

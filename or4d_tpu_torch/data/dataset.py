@@ -28,6 +28,7 @@ fetch as the reference does; MULTI_REL_OUTPUTS samples carry multi-hot
 from __future__ import annotations
 
 import json
+import os
 import tempfile
 import zlib
 from pathlib import Path
@@ -283,11 +284,16 @@ class ORDataset:
             hand_locations=hands, scan_id=scan_id, take_idx=scan["take_idx"],
             pair_shared=self.pair_shared, multi_rel=self.cfg.model.multi_rel_outputs,
         )
-        np.savez_compressed(
-            cache_path,
-            **{k: getattr(sample, k) for k in _CACHED_FIELDS},
-            meta={"scan_id": sample.scan_id, "take_idx": sample.take_idx, "slot_names": list(sample.slot_names)},
-        )
+        # written under a name of this process's own, then renamed: the ranks
+        # of a data-parallel run prepare the same scans side by side
+        tmp = cache_path.with_name(f"{cache_path.name}.{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            np.savez_compressed(
+                f,
+                **{k: getattr(sample, k) for k in _CACHED_FIELDS},
+                meta={"scan_id": sample.scan_id, "take_idx": sample.take_idx, "slot_names": list(sample.slot_names)},
+            )
+        os.replace(tmp, cache_path)
         return self._attach_images(sample, scan)
 
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0, limit: int | None = None):

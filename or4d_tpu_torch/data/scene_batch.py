@@ -133,6 +133,17 @@ class SceneBatch:
         return dataclasses.replace(self, **arrays, images=None if self.images is None else _np(self.images))
 
 
+def gather_rows_local(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The per-shard gather of a sharded plan (the JAX package's
+    ``gather_rows_local``): ``flat`` (D * rows, ...) read as D blocks of
+    ``rows``, ``idx`` (D, cap) local to each block -> (D * cap, ...). A rank
+    gathers its own block with its row, ``flat[idx[d]]``; this is the same
+    rows for all D blocks at once."""
+    D = idx.shape[0]
+    blocks = flat.reshape((D, flat.shape[0] // D) + tuple(flat.shape[1:]))
+    return blocks[torch.arange(D, device=idx.device)[:, None], idx.long()].reshape((-1,) + tuple(flat.shape[1:]))
+
+
 def _pair_slots(edge_index: np.ndarray, edge_mask: np.ndarray, s: int) -> dict[tuple[int, int], int]:
     """(src, dst) -> edge slot over the valid edges of scene ``s``."""
     return {(int(a), int(b)): e for e, (a, b) in enumerate(edge_index[s]) if edge_mask[s, e]}
@@ -184,6 +195,12 @@ class SlotPack:
       pair_idx     (Cp,) flat edge-slot indices of the FORWARD (a<b) edges
       pair_rev_idx (Cp,) flat edge-slot indices of the matching (b,a) edges
       pair_valid   (Cp,) bool
+
+    With ``shards`` = D > 1 every array is (D, cap): row d is the plan of
+    the d-th block of S / D scenes, its indices local to that block, every
+    row of one bucketed capacity (the largest block's need), as the JAX
+    package builds it for a dp-sharded batch; the rank at dp index d runs
+    row d (:meth:`row`) on its block.
     """
 
     obj_idx: Any
@@ -199,30 +216,39 @@ class SlotPack:
         return self.pair_idx is not None
 
     @classmethod
-    def build(cls, batch: SceneBatch, bucket: int = 128, paired: bool = False) -> "SlotPack":
+    def build(cls, batch: SceneBatch, bucket: int = 128, shards: int = 1, paired: bool = False) -> "SlotPack":
         b = batch.numpy()
+        S = b.num_scenes
+        if S % shards:
+            raise ValueError(f"{S} scenes not divisible by {shards} shards")
+        per = S // shards
 
         def plan(flat_idx, n_slots):
+            """(shards, cap) local indices and validity (cap,) for one shard;
+            ``flat_idx`` flat indices into the S * n_slots axis."""
             idx = np.asarray(flat_idx, np.int64)
-            cap = max(bucket, int(np.ceil(max(len(idx), 1) / bucket)) * bucket)
-            cap = min(cap, n_slots)
-            padded = np.zeros(cap, np.int32)
-            padded[: len(idx)] = idx
-            valid = np.zeros(cap, bool)
-            valid[: len(idx)] = True
-            return padded, valid
+            shard_of = idx // (per * n_slots)
+            locs = [idx[shard_of == d] - d * per * n_slots for d in range(shards)]
+            need = max(max(len(l) for l in locs), 1)
+            cap = min(max(bucket, int(np.ceil(need / bucket)) * bucket), per * n_slots)
+            padded = np.zeros((shards, cap), np.int32)
+            valid = np.zeros((shards, cap), bool)
+            for d, l in enumerate(locs):
+                padded[d, : len(l)] = l
+                valid[d, : len(l)] = True
+            return (padded[0], valid[0]) if shards == 1 else (padded, valid)
 
-        om = np.asarray(b.obj_mask).reshape(-1)
-        em = np.asarray(b.edge_mask).reshape(-1)
-        oi, ov = plan(np.nonzero(om)[0], len(om))
-        ei, ev = plan(np.nonzero(em)[0], len(em))
+        om = np.asarray(b.obj_mask)
+        em = np.asarray(b.edge_mask)
+        oi, ov = plan(np.nonzero(om.reshape(-1))[0], om.shape[1])
+        ei, ev = plan(np.nonzero(em.reshape(-1))[0], em.shape[1])
         if not paired:
             return cls(obj_idx=oi, obj_valid=ov, edge_idx=ei, edge_valid=ev)
 
         # pair plan: for every valid forward edge (a < b) find the slot of
         # its reverse (b, a) within the same scene
         eidx, emask = b.edge_index, b.edge_mask
-        S, E = emask.shape
+        E = emask.shape[1]
         fwd_flat, rev_flat = [], []
         for s in range(S):
             slot_of = _pair_slots(eidx, emask, s)
@@ -237,10 +263,15 @@ class SlotPack:
             rp = np.asarray(b.rel_points).reshape(S * E, *b.rel_points.shape[2:])
             if not _is_mask_swap(rp[fwd_flat[0]], rp[rev_flat[0]]):
                 raise ValueError("paired=True but rel crops are not pair-shared (prepare_scene(pair_shared=True))")
-        pi, pv = plan(fwd_flat, S * E)
-        pr, _ = plan(rev_flat, S * E)
+        pi, pv = plan(fwd_flat, E)
+        pr, _ = plan(rev_flat, E)
         return cls(obj_idx=oi, obj_valid=ov, edge_idx=ei, edge_valid=ev,
                    pair_idx=pi, pair_rev_idx=pr, pair_valid=pv)
+
+    def row(self, d: int) -> "SlotPack":
+        """Row ``d`` of a sharded plan: the flat plan of the d-th block."""
+        return SlotPack(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[d]
+                           for f in dataclasses.fields(self)})
 
     def to(self, device: str | torch.device) -> "SlotPack":
         """The same plan as int64/bool tensors on ``device``."""

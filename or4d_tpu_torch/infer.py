@@ -35,25 +35,32 @@ def predict_relations(model: SGPN, batches: Iterable[SceneBatch], vocab: Vocab =
     """{scan_id: [(subject, relation, object), ...]} over every batch (eval,
     no autograd graph)."""
     dev = model.device
-    none_idx = vocab.none_index
     scan_relations: dict[str, list] = {}
     for batch in batches:
         batch = batch.numpy()
         pack = SlotPack.build(batch, paired=is_pair_shared(batch))
-        out = model(batch.to(dev), pack.to(dev)).rel_logprobs.cpu().numpy()
-        multi = model.multi_rel_outputs
-        preds = None if multi else out.argmax(-1)
-        for s, scan_id in enumerate(batch.scan_ids):
-            names = batch.slot_names[s]
-            em, ei = batch.edge_mask[s], batch.edge_index[s]
-            relations = []
-            for e in range(len(em)):
-                if not em[e]:
-                    continue
-                for r in (np.nonzero(out[s, e] > 0.5)[0] if multi else [preds[s, e]]):
-                    if r != none_idx:
-                        relations.append((names[ei[e, 0]], vocab.relation_names[r], names[ei[e, 1]]))
-            scan_relations[scan_id] = relations
+        out = model(batch.to(dev), pack.to(dev)).rel_logprobs
+        scan_relations.update(relations_of(batch, out, vocab, model.multi_rel_outputs))
+    return scan_relations
+
+
+def relations_of(batch: SceneBatch, rel_logprobs, vocab: Vocab, multi: bool) -> dict[str, list]:
+    """{scan_id: [(subject, relation, object), ...]} of a host batch from its
+    relation log-probs (S, E, R), or probabilities when ``multi``."""
+    out = rel_logprobs.cpu().numpy()
+    preds = None if multi else out.argmax(-1)
+    scan_relations: dict[str, list] = {}
+    for s, scan_id in enumerate(batch.scan_ids):
+        names = batch.slot_names[s]
+        em, ei = batch.edge_mask[s], batch.edge_index[s]
+        relations = []
+        for e in range(len(em)):
+            if not em[e]:
+                continue
+            for r in (np.nonzero(out[s, e] > 0.5)[0] if multi else [preds[s, e]]):
+                if r != vocab.none_index:
+                    relations.append((names[ei[e, 0]], vocab.relation_names[r], names[ei[e, 1]]))
+        scan_relations[scan_id] = relations
     return scan_relations
 
 

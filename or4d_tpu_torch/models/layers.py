@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from or4d_tpu_torch.parallel.mesh import all_reduce, all_reduce_
+
 
 def _param(shape, device, std: float = 0.0, generator: torch.Generator | None = None) -> nn.Parameter:
     """A float32 parameter made on the CPU from ``generator`` (normal with
@@ -76,20 +78,25 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
     pass over whole tensors."""
 
     @staticmethod
-    def forward(ctx, x, mask, weight, bias, eps, relu, chunked=False):
+    def forward(ctx, x, mask, weight, bias, eps, relu, chunked=False, group=None):
         B, C = x.shape[0], x.shape[-1]
         xf = x.float().reshape(B, -1, C)
         mb = torch.ones(B, device=x.device) if mask is None else mask.float().reshape(B)
-        count = torch.clamp(mb.sum() * xf.shape[1], min=1.0)
-        mean = (mb @ xf.sum(1)) / count
+        count = mb.sum() * xf.shape[1]
+        total = mb @ xf.sum(1)
+        if group is not None:  # the sum and the count over every rank's rows, in one call
+            both = all_reduce_(torch.cat([total, count.reshape(1)]), group)
+            total, count = both[:C], both[C]
+        count = torch.clamp(count, min=1.0)
+        mean = total / count
         y = xf - mean
-        var = (mb @ (y * y).sum(1)) / count
+        var = all_reduce_(mb @ (y * y).sum(1), group) / count
         rstd = torch.rsqrt(var + eps)
         y.mul_(rstd).mul_(weight).add_(bias)
         if relu:
             y.relu_()
         ctx.save_for_backward(x, mb, weight, bias, mean, rstd, count)
-        ctx.relu, ctx.chunked = relu, chunked
+        ctx.relu, ctx.chunked, ctx.group = relu, chunked, group
         ctx.mark_non_differentiable(mean, var, count)
         return y.to(x.dtype).reshape(x.shape), mean, var, count
 
@@ -114,23 +121,33 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
         def sums(xhat, g, gx):
             return torch.stack([(g * xhat).sum((0, 1)), g.sum((0, 1)), gx.sum((0, 1)), (gx * xhat).sum((0, 1))])
 
+        def dx_sums(t):
+            # dx needs G and H over every rank's rows; dw and db stay this
+            # rank's share (the step sums the parameter gradients)
+            return t[0], t[1], *all_reduce_(t[2:].clone(), ctx.group)
+
         if step >= B:
             xhat, g, gx = chunk(0)
-            dw, db, G, H = sums(xhat, g, gx).unbind(0)
+            dw, db, G, H = dx_sums(sums(xhat, g, gx))
             dx = dx_of(0, xhat, gx, G, H)
         else:
             total = sum(sums(*chunk(lo)) for lo in range(0, B, step))
-            dw, db, G, H = total.unbind(0)
+            dw, db, G, H = dx_sums(total)
             dx = torch.empty(xr.shape, dtype=x.dtype, device=x.device)
             for lo in range(0, B, step):
                 xhat, _g, gx = chunk(lo)
                 dx[lo:lo + step] = dx_of(lo, xhat, gx, G, H)
-        return dx.to(x.dtype).reshape(x.shape), None, dw, db, None, None, None
+        return dx.to(x.dtype).reshape(x.shape), None, dw, db, None, None, None, None
 
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over all non-channel axes with row validity masking;
-    ``relu=True`` applies a ReLU to the result."""
+    ``relu=True`` applies a ReLU to the result.
+
+    ``group``: a process group whose ranks hold the other rows of the batch
+    (``SGPN.set_mesh``); the batch moments, and in train mode the sums of
+    the backward, are then taken over every rank's rows, as the JAX step
+    takes them over its global batch. None: this process's rows only."""
 
     momentum = 0.1
 
@@ -138,6 +155,7 @@ class MaskedBatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.track_running_stats = track_running_stats
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         if track_running_stats:
@@ -162,7 +180,7 @@ class MaskedBatchNorm(nn.Module):
         (``TPUConfig.remat``) also takes the row-chunked backward."""
         if self.track_running_stats and train:
             y, mean, var, count = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps, relu,
-                                                              stats is not None)
+                                                              stats is not None, self.group)
             if stats is None:
                 self.update_running(mean, var, count)
             else:
@@ -174,9 +192,9 @@ class MaskedBatchNorm(nn.Module):
             xf = x.float().reshape(-1, x.shape[-1])
             m = torch.ones(xf.shape[0], 1, device=x.device) if mask is None else (
                 torch.broadcast_to(mask.float(), x.shape[:-1]).reshape(-1, 1))
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(0) / count
-            var = (((xf - mean) ** 2) * m).sum(0) / count
+            count = torch.clamp(all_reduce_(m.sum(), self.group), min=1.0)
+            mean = all_reduce((xf * m).sum(0), self.group) / count
+            var = all_reduce((((xf - mean) ** 2) * m).sum(0), self.group) / count
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         y = (y * self.weight + self.bias).to(x.dtype)
         return torch.relu(y) if relu else y

@@ -22,6 +22,13 @@ encoders SA1 caches built for the batch's flat pack
 ``forward`` builds no autograd graph only under ``torch.no_grad()``, which
 the eval entry points (``infer.predict_relations``, ``Trainer.eval_step``)
 take.
+
+On a mesh of ranks (:meth:`SGPN.set_mesh`) a rank runs its dp block of
+scenes; the BN moments and the loss denominators are taken over every
+rank's rows. On an mp > 1 mesh a rank's encoders run its block of the
+object and edge slots (no pack), and their features are gathered over the
+mp group before the TripletGCN, which needs every slot of a scene; the GCN
+and the heads then run on each mp rank alike.
 """
 
 from __future__ import annotations
@@ -35,8 +42,10 @@ from or4d_tpu_torch.config import ExperimentConfig
 from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
 from or4d_tpu_torch.device import resolve_device
 from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead, draw_keep
+from or4d_tpu_torch.models.layers import MaskedBatchNorm
 from or4d_tpu_torch.models.pointnet2 import PointNet2MSGEncoder
 from or4d_tpu_torch.models.triplet_gcn import TripletGCN
+from or4d_tpu_torch.parallel.mesh import all_reduce_, gather, slot_block
 
 
 @dataclasses.dataclass
@@ -86,6 +95,17 @@ class SGPN(nn.Module):
             from or4d_tpu_torch.models.efficientnet import ImageBranch
 
             self.image_branch = ImageBranch(image_embedding_size, device=device, generator=generator)
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Run as one rank of ``mesh`` (:class:`~or4d_tpu_torch.parallel.Mesh`):
+        the encoders' BN reduces over every rank (each holds its own rows),
+        the GCN's over the dp group (the mp ranks of a dp index hold the same
+        scenes' slots after the gather)."""
+        self.mesh = mesh
+        for name, m in self.named_modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.group = mesh.dp_group if name.startswith("gcn.") else mesh.world
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig, num_classes: int, num_relations: int, **kw) -> "SGPN":
@@ -131,12 +151,19 @@ class SGPN(nn.Module):
             obj_feat = self.obj_encoder(None, sa1_cache=sa1_caches[0])
             rel_feat = self.rel_encoder(None, sa1_cache=sa1_caches[1])
             return self._head(batch, pack, obj_feat, rel_feat, False, False, generator, dropout_keep)
-        S, O, Po, Co = batch.obj_points.shape
-        _, E, Pr, Cr = batch.rel_points.shape
-        obj_rows = batch.obj_mask.reshape(S * O).float()
-        edge_rows = batch.edge_mask.reshape(S * E).float()
-        obj_flat = batch.obj_points.reshape(S * O, Po, Co).float()
-        rel_flat = batch.rel_points.reshape(S * E, Pr, Cr).float()
+        mesh = self.mesh
+        slots = batch
+        if mesh is not None and mesh.mp > 1:
+            if pack is not None:
+                raise ValueError("slot packing is dp-only: an mp > 1 mesh runs without a pack")
+            slots = dataclasses.replace(batch, **{f: slot_block(getattr(batch, f), mesh) for f in
+                                                  ("obj_points", "rel_points", "obj_mask", "edge_mask")})
+        S, O, Po, Co = slots.obj_points.shape
+        _, E, Pr, Cr = slots.rel_points.shape
+        obj_rows = slots.obj_mask.reshape(S * O).float()
+        edge_rows = slots.edge_mask.reshape(S * E).float()
+        obj_flat = slots.obj_points.reshape(S * O, Po, Co).float()
+        rel_flat = slots.rel_points.reshape(S * E, Pr, Cr).float()
         paired = not train and pack is not None and pack.paired
         if pack is not None:
             obj_flat = obj_flat[pack.obj_idx]
@@ -150,6 +177,9 @@ class SGPN(nn.Module):
 
         obj_feat = self.obj_encoder(obj_flat, mask=obj_rows, train=train)
         rel_feat = self.rel_encoder(rel_flat, paired=paired, mask=edge_rows, train=train)
+        if slots is not batch:  # every slot of the block's scenes, in slot order
+            obj_feat = gather(obj_feat.reshape(S, O, -1), mesh.mp_group, dim=1).flatten(0, 1)
+            rel_feat = gather(rel_feat.reshape(S, E, -1), mesh.mp_group, dim=1).flatten(0, 1)
         return self._head(batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep)
 
     def _head(self, batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep) -> SGPNOutputs:
@@ -190,38 +220,42 @@ class SGPN(nn.Module):
 
 
 def weighted_nll(logprobs: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, group=None) -> torch.Tensor:
     """torch ``F.nll_loss(weight=w)`` with validity masking: weighted mean of
     -logprob[target] with weights w[target] * mask (reference training_step
-    :134-145)."""
+    :134-145). ``group``: the weights' sum is taken over its ranks' batches
+    too, so the ranks' terms add up to the global batch's loss."""
     targets = targets.long()
     picked = torch.gather(logprobs, -1, targets[..., None])[..., 0]
     w = class_weights[targets] * mask.to(logprobs.dtype)
-    return -(picked * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return -(picked * w).sum() / torch.clamp(all_reduce_(w.sum(), group), min=1e-12)
 
 
 def weighted_bce(probs: torch.Tensor, targets: torch.Tensor, class_weights: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, group=None) -> torch.Tensor:
     """MULTI_REL_OUTPUTS loss: torch ``F.binary_cross_entropy(weight=w)``
     over (S, E, R) sigmoid probabilities and multi-hot targets, per element
-    w[c] * BCE, averaged over the valid edges' elements; probabilities
-    clipped to [1e-7, 1 - 1e-7] (or4d_tpu/models/sgpn.py:271-282)."""
+    w[c] * BCE, averaged over the valid edges' elements (over ``group``'s
+    batches too, as :func:`weighted_nll`); probabilities clipped to
+    [1e-7, 1 - 1e-7] (or4d_tpu/models/sgpn.py:271-282)."""
     p = torch.clamp(probs.float(), 1e-7, 1.0 - 1e-7)
     y = targets.float()
     bce = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p)) * class_weights
     m = mask.float()[..., None]
-    return (bce * m).sum() / torch.clamp(m.sum() * probs.shape[-1], min=1e-12)
+    return (bce * m).sum() / torch.clamp(all_reduce_(m.sum(), group) * probs.shape[-1], min=1e-12)
 
 
 def sgpn_loss(outputs: SGPNOutputs, batch: SceneBatch, weights_obj: torch.Tensor, weights_rel: torch.Tensor,
-              lambda_o: float = 1e-6):
+              lambda_o: float = 1e-6, group=None):
     """(loss, {"loss_obj", "loss_rel", "loss"}): loss = lambda_o * obj NLL +
     rel NLL (reference :139-141); the relation term is :func:`weighted_bce`
-    where ``gt_rels`` is a multi-hot (S, E, R) (MULTI_REL_OUTPUTS)."""
-    loss_obj = weighted_nll(outputs.obj_logprobs, batch.gt_class, weights_obj, batch.obj_mask)
+    where ``gt_rels`` is a multi-hot (S, E, R) (MULTI_REL_OUTPUTS).
+    ``group``: this rank's share of the loss of its ranks' batches
+    together (the shares sum to it)."""
+    loss_obj = weighted_nll(outputs.obj_logprobs, batch.gt_class, weights_obj, batch.obj_mask, group)
     if batch.gt_rels.dim() == outputs.rel_logprobs.dim():
-        loss_rel = weighted_bce(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
+        loss_rel = weighted_bce(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask, group)
     else:
-        loss_rel = weighted_nll(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask)
+        loss_rel = weighted_nll(outputs.rel_logprobs, batch.gt_rels, weights_rel, batch.edge_mask, group)
     loss = lambda_o * loss_obj + loss_rel
     return loss, {"loss_obj": loss_obj, "loss_rel": loss_rel, "loss": loss}

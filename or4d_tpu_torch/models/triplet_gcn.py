@@ -10,7 +10,11 @@ ReLU between layers. All BN uses masked batch statistics
 The JAX package runs the per-scene scatter under vmap; here it is a batched
 product with the one-hot of the targets, whose summation order is fixed
 (``index_add_`` on the card adds in the order its atomics land, so two runs
-of the same forward differed by ~1e-6).
+of the same forward differed by ~1e-6). The triplets' node features are
+taken the same way, as products with the one-hots of the sources and the
+targets (exact: one 1.0 a row), so their backward sums each node's
+cotangents in one order too (a gather's backward adds them with atomics,
+and two runs of one train step differed in the gradients' last bits).
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ class TripletGCNLayer(nn.Module):
         S, O, _ = x.shape
         E = edge_index.shape[1]
         src, dst = edge_index[..., 0].long(), edge_index[..., 1].long()
-        x_j = torch.gather(x, 1, src[..., None].expand(-1, -1, x.shape[-1]))  # sources
-        x_i = torch.gather(x, 1, dst[..., None].expand(-1, -1, x.shape[-1]))  # targets
+        to_dst = nn.functional.one_hot(dst, O).to(x.dtype)  # (S, E, O)
+        x_j = torch.bmm(nn.functional.one_hot(src, O).to(x.dtype), x)  # sources
+        x_i = torch.bmm(to_dst, x)  # targets
         triplet = torch.cat([x_i, edge_feature.to(x_i.dtype), x_j], dim=-1)
         h = self.nn1(triplet, edge_mask)
         H, De = self.dim_hidden, self.dim_edge
@@ -45,7 +50,7 @@ class TripletGCNLayer(nn.Module):
         # each node's messages summed as the product with the (S, O, E)
         # one-hot of the targets: one summation order on every run and
         # device (index_add_ on the card sums in the order its atomics land)
-        agg = torch.bmm(nn.functional.one_hot(dst, O).transpose(1, 2).to(msg.dtype), msg)
+        agg = torch.bmm(to_dst.transpose(1, 2).to(msg.dtype), msg)
         new_x = self.nn2(agg, obj_mask)
         return new_x, new_e
 

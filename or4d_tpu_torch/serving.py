@@ -1,5 +1,5 @@
 """Serving-mode evaluation: precomputed SA1 geometry (port of
-``or4d_tpu/serving.py``, single device).
+``or4d_tpu/serving.py``).
 
 For a fixed, non-augmented evaluation set the geometry of the point encoders'
 first stage depends only on each crop's xyz, never on the weights: the FPS
@@ -46,6 +46,7 @@ from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
 from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale
 from or4d_tpu_torch.ops.fps import furthest_point_sample
 from or4d_tpu_torch.ops.serving_sa1_mlp import C0P
+from or4d_tpu_torch.parallel.mesh import dp_block
 from or4d_tpu_torch.train.metrics import RelationMetricAccumulator
 from or4d_tpu_torch.utils.stream import lookahead
 
@@ -122,17 +123,18 @@ def build_sgpn_sa1_caches(model, batch: SceneBatch, pack: SlotPack | None = None
             build_sa1_cache(rel_flat, *sa1_geometry(model.rel_encoder), dtype))
 
 
-def _cache_key(batch: SceneBatch, model) -> str:
+def _cache_key(batch: SceneBatch, model, dp: int = 1, rank: int = 0) -> str:
     """Content key of a persisted cache: scan identity, padded shapes,
-    validity masks, both encoders' SA1 geometry (npoint, radii, nsamples),
-    the storage dtype and the layout tag. Crop content is assumed to be a
+    validity masks, the dp size and the dp rank whose block's rows the
+    cache holds, both encoders' SA1 geometry (npoint, radii, nsamples), the
+    storage dtype and the layout tag. Crop content is assumed to be a
     function of the scan ids (true of the non-augmented data pipeline); a
     changed prep recipe needs a fresh cache directory."""
     b = batch.numpy()
     h = hashlib.sha256()
     h.update(repr((
         tuple(b.scan_ids), tuple(int(t) for t in b.take_idxs), tuple(b.obj_points.shape),
-        tuple(b.rel_points.shape), sa1_geometry(model.obj_encoder), sa1_geometry(model.rel_encoder),
+        tuple(b.rel_points.shape), dp, rank, sa1_geometry(model.obj_encoder), sa1_geometry(model.rel_encoder),
         str(model.compute_dtype), LAYOUT,
     )).encode())
     h.update(np.ascontiguousarray(b.obj_mask).tobytes())
@@ -230,13 +232,27 @@ class ServingEvaluator:
     (:func:`_cache_key`); a restart loads the planes instead of building.
 
     Entries of ``batches`` are ``[batch, pack, caches, offloaded, labels]``:
-    the batch with 1-point crops and its flat pack on the device, the
-    caches, whether they are in host memory, and the host copy of the batch
+    the batch with 1-point crops and its pack on the device, the caches,
+    whether they are in host memory, and the host copy of the global batch
     the metrics read.
+
+    On a dp > 1 mesh (``trainer.mesh``) a rank holds its block of each
+    batch's scenes (padded to a multiple of dp), row d of the dp-sharded
+    pack and the caches of that block's rows (its own cache files, the key
+    naming dp and the rank); :meth:`evaluate` gathers the blocks'
+    log-probs in scene order before the metric. An mp > 1 mesh is refused:
+    the caches are built against a slot pack, which is dp-only.
     """
 
     def __init__(self, trainer, batches, offload: bool | str = "auto", device_budget_bytes: int = 4 << 30,
                  cache_dir=None):
+        mesh = trainer.mesh
+        if mesh.mp != 1:
+            raise ValueError(
+                "ServingEvaluator needs a dp-only mesh (slot packing, which the "
+                "SA1 caches are built against, is disabled on mp>1 — "
+                "train/loop.py:_pack_for)"
+            )
         if cache_dir is not None:
             cache_dir = Path(cache_dir)
             cache_dir.mkdir(parents=True, exist_ok=True)
@@ -248,12 +264,15 @@ class ServingEvaluator:
         with torch.no_grad():
             for batch in batches:
                 host = batch.numpy()
-                pack = SlotPack.build(host).to(dev)
-                cache_file = cache_dir / f"sa1_{_cache_key(host, model)}.npz" if cache_dir is not None else None
+                padded = host.pad_scenes(mesh.dp)
+                pack = trainer._pack_for(padded)
+                block = dp_block(padded, mesh)
+                cache_file = (cache_dir / f"sa1_{_cache_key(padded, model, mesh.dp, mesh.dp_rank)}.npz"
+                              if cache_dir is not None else None)
                 if cache_file is not None and cache_file.exists():
                     caches = _load_caches(cache_file)  # host; placed below
                 else:
-                    caches = build_sgpn_sa1_caches(model, host.to(dev), pack)
+                    caches = build_sgpn_sa1_caches(model, block.to(dev), pack)
                     if cache_file is not None:
                         _save_caches(cache_file, caches)
                 labels = _strip_points(host)
@@ -264,7 +283,7 @@ class ServingEvaluator:
                         for entry in self.batches:
                             entry[2], entry[3] = _to_host(entry[2]), True
                 caches = _to_host(caches) if offload_now else tuple(c.to(dev) for c in caches)
-                self.batches.append([labels.to(dev), pack, caches, offload_now, labels])
+                self.batches.append([_strip_points(block).to(dev), pack, caches, offload_now, labels])
 
     def evaluate(self, verbose: bool = False) -> float:
         """Relation macro F1 over the batches (the metric of record)."""
@@ -276,6 +295,7 @@ class ServingEvaluator:
             if offloaded:
                 caches = tuple(c.to(dev, non_blocking=True) for c in caches)
             rel = model(batch, pack, sa1_caches=caches).rel_logprobs
+            rel = self.trainer._gather_scenes(rel, labels.num_scenes)
             if rel.device.type != "cuda":
                 return labels, rel, None
             host = torch.empty(rel.shape, dtype=rel.dtype, pin_memory=True)

@@ -374,10 +374,12 @@ def test_step_gradients_against_the_float64_reference(monkeypatch):
 
 class _MaskedBatchNormTrain64(torch.autograd.Function):
     """The port's train-mode masked BN (``layers._MaskedBatchNormTrain``)
-    with its float32 casts made float64; autograd's backward."""
+    with its float32 casts made float64; autograd's backward. One process:
+    no process group to reduce over."""
 
     @staticmethod
-    def apply(x, mask, weight, bias, eps, relu, chunked=False):
+    def apply(x, mask, weight, bias, eps, relu, chunked=False, group=None):
+        assert group is None
         B, C = x.shape[0], x.shape[-1]
         xf = x.double().reshape(B, -1, C)
         mb = torch.ones(B, dtype=torch.float64) if mask is None else mask.double().reshape(B)

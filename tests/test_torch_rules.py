@@ -5,7 +5,9 @@
 * entry points (``infer``, ``train``, ``serving``, and ``cli`` in every
   mode that uses a device, ``perception``'s detect tasks among them, with
   the L2 functions it calls) raise without a
-  card unless they are given ``device="cpu"``; ``python -m or4d_tpu_torch.train
+  card unless they are given ``device="cpu"``, under ``torchrun`` too;
+  under ``torchrun`` the CLI runs only train, evaluate and infer
+  data-parallel and refuses the rest; ``python -m or4d_tpu_torch.train
   --device cpu`` writes a finite history, and ``python -m
   or4d_tpu_torch.serving --device cpu`` prints a finite macro F1;
 * a kernel build with no compiler raises (no plain-version fallback);
@@ -51,7 +53,8 @@ def test_port_imports_nothing_of_jax():
     for module in ("ops/floyd_warshall", "models/graphormer", "pipeline/role_graphormer", "pipeline/role_dataset",
                    "train/graphormer_trainer", "utils/logging", "utils/visualize", "ops/box_geometry",
                    "ops/interpolate", "models/groupfree", "models/groupfree_loss", "data/groupfree_dataset",
-                   "train/perception_trainers", "pipeline/perception_infer"):
+                   "train/perception_trainers", "pipeline/perception_infer", "parallel/__init__",
+                   "parallel/mesh", "parallel/launch", "utils/profiling", "ops/grouping", "ops/scatter"):
         assert f"or4d_tpu_torch/{module}.py" in names, module
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -104,6 +107,19 @@ def test_cli_device_modes_raise_without_a_card(no_card, tmp_path, mode):
         cli.main(args + (["--task", *task] if task else []))
     assert not out.exists() and not (tmp_path / "c").exists() and not (tmp_path / "ck").exists()
     assert not (root / "preprocessed_ret_dicts").exists()
+
+
+def test_cli_under_torchrun_raises_without_a_card_and_refuses_one_process_modes(no_card, monkeypatch, tmp_path):
+    from or4d_tpu_torch import cli
+
+    root = Path(__file__).parent / "golden" / "real_data"
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    args = ["--config", "tiny", "--data-root", str(root), "--cache-dir", str(tmp_path / "c")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", *args])
+    with pytest.raises(ValueError, match="runs in one process"):
+        cli.main(["instance-labels", *args, "--device", "cpu"])
+    assert not (tmp_path / "c").exists()
 
 
 def test_l2_functions_raise_without_a_card(no_card, tmp_path):
