@@ -874,7 +874,20 @@ def profile_step(run, step_ms: float, groups=None, counted=None) -> dict:
     time with no kernel running). ``counted`` ({group: launch counter
     prefixes}) holds the trace against the port's launch counters: a
     group's kernels in the trace must be as many as those counters rose in
-    the recorded run, else the trace lost some and the run fails."""
+    the recorded run, else the trace lost some: the profile is taken again,
+    up to three times, and the run fails if every trace lost kernels (the
+    first kernels of a recorded window have been seen missing from one)."""
+    for attempt in range(3):
+        out = _profile_once(run, step_ms, groups, counted)
+        lost = {g: c for g, c in out.get("counted", {}).items() if c["trace"] != c["counters"]}
+        if not lost:
+            return {**out, "attempts": attempt + 1}
+        emit({"phase": "profile_retry", "attempt": attempt, "lost": lost})
+    fail(f"profile: the trace lost kernels in three attempts: {lost}")
+
+
+def _profile_once(run, step_ms: float, groups, counted) -> dict:
+    """One attempt of :func:`profile_step`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -911,8 +924,6 @@ def profile_step(run, step_ms: float, groups=None, counted=None) -> dict:
         for g, prefixes in (counted or {}).items():
             rose = sum(n - before.get(c, 0) for c, n in after.items() if c.startswith(prefixes))
             out.setdefault("counted", {})[g] = {"trace": calls[g], "counters": rose}
-            if calls[g] != rose:
-                fail(f"profile: the trace holds {calls[g]} {g} kernels, the launch counters rose by {rose}")
     return out
 
 
