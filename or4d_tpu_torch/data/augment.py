@@ -13,8 +13,12 @@ Reference ``scene_graph_helpers/dataset/augmentation_utils.py``:
   * applied to a scene with probability 0.75 (or_dataset.py:122-127).
 
 Every crop of a batch is transformed at once as plain tensor ops on the
-batch's device. The random draws are made apart from the arithmetic:
-:func:`draw_augment` takes them from a ``torch.Generator`` on the CPU (so a
+batch's device, element-wise only: the sums over a crop's points are trees
+of element-wise adds and the 3 x 3 rotations are products summed in a fixed
+order, so a crop's result does not depend on the batch's shape or the
+device (a block of scenes augmented alone equals that block of the whole
+batch augmented, bit for bit). The random draws are made apart from the
+arithmetic: :func:`draw_augment` takes them from a ``torch.Generator`` on the CPU (so a
 run on the card and one on the CPU draw the same numbers), and
 :func:`augment_batch_with` applies given draws, so a test can hand it the
 values the JAX package draws from its key tree.
@@ -71,10 +75,16 @@ class AugmentDraws:
     rel_thres: torch.Tensor
     rel: tuple
 
+    def _map(self, f) -> "AugmentDraws":
+        mv = lambda d: {k: f(v) for k, v in d.items()}
+        return AugmentDraws(f(self.apply), mv(self.obj), f(self.rel_thres), tuple(mv(d) for d in self.rel))
+
     def to(self, device) -> "AugmentDraws":
-        mv = lambda d: {k: v.to(device) for k, v in d.items()}
-        return AugmentDraws(self.apply.to(device), mv(self.obj), self.rel_thres.to(device),
-                            tuple(mv(d) for d in self.rel))
+        return self._map(lambda v: v.to(device))
+
+    def scenes(self, index) -> "AugmentDraws":
+        """The draws of the scenes ``index`` (a slice or a list) picks."""
+        return self._map(lambda v: v[index])
 
 
 def _uniform(shape, low, high, generator):
@@ -109,6 +119,27 @@ def _rot(deg: torch.Tensor, axis: str) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def _sum_points(x: torch.Tensor) -> torch.Tensor:
+    """(..., P, k) -> (..., k): the sum over the points as a tree of
+    element-wise adds (zero-padded to a power of two), so its rounding
+    depends on P alone."""
+    P = x.shape[-2]
+    n = 1 << (P - 1).bit_length()
+    if n != P:
+        x = torch.nn.functional.pad(x, (0, 0, 0, n - P))
+    while x.shape[-2] > 1:
+        h = x.shape[-2] // 2
+        x = x[..., :h, :] + x[..., h:, :]
+    return x[..., 0, :]
+
+
+def _right_mul(p: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """``p @ R`` for points (..., P, 3) and matrices (..., 3, 3), as
+    element-wise products summed in the order (0 + 1) + 2."""
+    t = p[..., :, :, None] * R[..., None, :, :]  # (..., P, 3, 3)
+    return t[..., 0, :] + t[..., 1, :] + t[..., 2, :]
+
+
 def augment_crops(points: torch.Tensor, d: dict, subset: torch.Tensor | None = None) -> torch.Tensor:
     """Crops (..., P, C>=6), xyz in [..., :3] and rgb in [..., 3:6]; other
     channels pass through. ``d``: crop draws over the leading dims;
@@ -121,11 +152,13 @@ def augment_crops(points: torch.Tensor, d: dict, subset: torch.Tensor | None = N
     rgb_new = torch.clamp(rgb_new + d["colors"][..., None, :], 0.0, 1.0)
 
     xyz_new = xyz + d["shift"][..., None, :]
-    count = torch.clamp(mf.sum(-2), min=1.0)  # (..., 1)
-    center = (xyz_new * mf).sum(-2) / count  # (..., 3)
+    count = torch.clamp(_sum_points(mf), min=1.0)  # (..., 1)
+    center = _sum_points(xyz_new * mf) / count  # (..., 3)
     centered = xyz_new - center[..., None, :]
     # the reference right-multiplies: p' = p @ R_y(y) @ R_y(x) @ R_z(z)
-    rotated = centered @ _rot(d["y_rot"], "y") @ _rot(d["x_rot"], "y") @ _rot(d["z_rot"], "z")
+    rotated = centered
+    for deg, axis in ((d["y_rot"], "y"), (d["x_rot"], "y"), (d["z_rot"], "z")):
+        rotated = _right_mul(rotated, _rot(deg, axis))
     xyz_new = rotated * d["scale"][..., None, None] + center[..., None, :]
 
     out_xyz = torch.where(m[..., None], xyz_new, xyz)
@@ -137,7 +170,8 @@ def augment_rel_crops(points, hand_points, is_contact, thres, passes) -> torch.T
     """Relation crops (..., P, 7): hand-proximity zeroing of contact edges,
     then the whole-crop pass and the subject and object passes."""
     diff = points[..., :, None, :3] - hand_points[..., None, :, :]  # (..., P, 2, 3)
-    dist = torch.sqrt((diff * diff).sum(-1)).amin(-1)  # (..., P)
+    sq = diff * diff
+    dist = torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2]).amin(-1)  # (..., P)
     zero = is_contact[..., None] & (dist > thres[..., None])
     points = torch.where(zero[..., None], torch.zeros((), dtype=points.dtype, device=points.device), points)
     points = augment_crops(points, passes[0])

@@ -44,6 +44,7 @@ from or4d_tpu_torch.ops.ball_query_multiscale import ball_query_multiscale
 from or4d_tpu_torch.ops.box_geometry import box_corners, oriented_box_iou
 from or4d_tpu_torch.ops.box_geometry import nms_3d_samecls as _nms
 from or4d_tpu_torch.ops.fps import furthest_point_sample
+from or4d_tpu_torch.ops.interpolate import gather_rows as _gather  # reproducible backward
 from or4d_tpu_torch.ops.interpolate import three_interpolate, three_nn
 
 NUM_CLASS = 4
@@ -51,12 +52,6 @@ NUM_HEADING_BIN = 12
 NUM_SIZE_CLUSTER = 4
 SEED_DIM = 288
 LN_EPS = 1e-6  # flax LayerNorm
-
-
-def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, C), idx (B, ...) -> (B, ..., C)."""
-    rows = torch.arange(x.shape[0], device=x.device).reshape((-1,) + (1,) * (idx.dim() - 1))
-    return x[rows, idx.long()]
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:

@@ -41,7 +41,7 @@ from torch import nn
 from or4d_tpu_torch.config import ExperimentConfig
 from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
 from or4d_tpu_torch.device import resolve_device
-from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead, draw_keep
+from or4d_tpu_torch.models.heads import ObjectClsHead, RelationClsHead
 from or4d_tpu_torch.models.layers import MaskedBatchNorm
 from or4d_tpu_torch.models.pointnet2 import PointNet2MSGEncoder
 from or4d_tpu_torch.models.triplet_gcn import TripletGCN
@@ -133,14 +133,14 @@ class SGPN(nn.Module):
         return self.gcn.layer_0.nn1.dense_0.weight.device
 
     def forward(self, batch: SceneBatch, pack: SlotPack | None = None, train: bool = False,
-                generator: torch.Generator | None = None, dropout_keep: dict | None = None,
-                sa1_caches=None) -> SGPNOutputs:
+                dropout_keep: dict | None = None, sa1_caches=None) -> SGPNOutputs:
         """``batch`` and ``pack`` hold tensors on the model's device.
 
         ``train=True``: batch statistics over the valid rows (pack validity,
         or the batch masks without a pack), running statistics updated, and
         head dropout with keep-masks ``dropout_keep`` {"obj": (S, O, 256),
-        "rel": (S, E, 256)} or, where absent, drawn from ``generator``.
+        "rel": (S, E, 256)} (required; the trainer draws them for the global
+        batch).
 
         ``sa1_caches``: (obj_cache, rel_cache) serving SA1 geometry built
         for this batch and its flat pack (``serving.build_sgpn_sa1_caches``);
@@ -150,7 +150,7 @@ class SGPN(nn.Module):
                 raise ValueError("sa1_caches: eval-only, unpaired packs")
             obj_feat = self.obj_encoder(None, sa1_cache=sa1_caches[0])
             rel_feat = self.rel_encoder(None, sa1_cache=sa1_caches[1])
-            return self._head(batch, pack, obj_feat, rel_feat, False, False, generator, dropout_keep)
+            return self._head(batch, pack, obj_feat, rel_feat, False, False, None)
         mesh = self.mesh
         slots = batch
         if mesh is not None and mesh.mp > 1:
@@ -180,9 +180,9 @@ class SGPN(nn.Module):
         if slots is not batch:  # every slot of the block's scenes, in slot order
             obj_feat = gather(obj_feat.reshape(S, O, -1), mesh.mp_group, dim=1).flatten(0, 1)
             rel_feat = gather(rel_feat.reshape(S, E, -1), mesh.mp_group, dim=1).flatten(0, 1)
-        return self._head(batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep)
+        return self._head(batch, pack, obj_feat, rel_feat, paired, train, dropout_keep)
 
-    def _head(self, batch, pack, obj_feat, rel_feat, paired, train, generator, dropout_keep) -> SGPNOutputs:
+    def _head(self, batch, pack, obj_feat, rel_feat, paired, train, dropout_keep) -> SGPNOutputs:
         """Encoder rows scattered back into the padded layout, then the GCN
         and the heads."""
         S, O = batch.obj_points.shape[:2]
@@ -203,11 +203,9 @@ class SGPN(nn.Module):
         rel_feat = rel_feat.reshape(S, E, De)
 
         gcn_obj, gcn_rel = self.gcn(obj_feat, rel_feat, batch.edge_index, batch.obj_mask, batch.edge_mask)
-        keep = dict(dropout_keep or {})
-        if train:
-            for k, n, head in (("obj", O, self.obj_predictor), ("rel", E, self.rel_predictor)):
-                if k not in keep:
-                    keep[k] = draw_keep((S, n, head.fc2.weight.shape[0]), generator, obj_feat.device)
+        if train and dropout_keep is None:
+            raise ValueError("train mode needs dropout_keep: the trainer draws it for the global batch")
+        keep = dropout_keep or {}
         obj_logprobs = self.obj_predictor(gcn_obj if self.obj_pred_from_gcn else obj_feat, train, keep.get("obj"))
         image_embeddings = self.image_branch(batch.images) if self.use_image else None
         rel_logprobs = self.rel_predictor(gcn_rel, batch.rel_onehot, train, keep.get("rel"), image_embeddings)

@@ -2,7 +2,9 @@
 of ``or4d_tpu/ops/interpolate.py``; reference interpolate_gpu.cu:9-154).
 
 Plain PyTorch on every device: the JAX functions are XLA, with no Pallas
-kernel behind them.
+kernel behind them. The neighbours' features are taken by
+:func:`gather_rows` (Group-Free's other gathers too), whose backward is
+reproducible.
 
 ``three_nn`` keeps the JAX package's distance, the expansion
 ``max(|a|^2 + |b|^2 - 2 a.b, 0)`` (``or4d_tpu/ops/ball_query.py:23``), not
@@ -60,6 +62,34 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> tuple[torch.Tensor, 
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """``features`` (B, m, C) channel-last, ``idx`` / ``weight`` (B, n, 3) ->
     (B, n, C): the weighted sum of each point's three neighbours' features."""
-    B, n, _ = idx.shape
-    gathered = torch.gather(features, 1, idx.reshape(B, n * 3, 1).expand(-1, -1, features.shape[-1]))
-    return (gathered.reshape(B, n, 3, -1) * weight[..., None]).sum(2)
+    return (gather_rows(features, idx) * weight[..., None]).sum(2)
+
+
+class _SortedGather(torch.autograd.Function):
+    """Rows ``x[idx]`` of a 2-D ``x``. The backward adds the cotangent rows
+    of a repeated index one by one in the indices' stable sorted order
+    (``segment_reduce``), so it is reproducible on the card and the CPU:
+    the backwards of ``torch.gather`` and of indexing add them with atomics
+    (on the CPU too, when threaded)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        lengths = torch.bincount(idx, minlength=ctx.rows)
+        return torch.segment_reduce(g[torch.argsort(idx, stable=True)], "sum", lengths=lengths, axis=0,
+                                    unsafe=True), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, N, C), ``idx`` (B, ...) into N -> (B, ..., C), with a
+    reproducible backward (:class:`_SortedGather`)."""
+    B, N, C = x.shape
+    rows = torch.arange(B, device=idx.device).reshape((-1,) + (1,) * (idx.dim() - 1))
+    flat = (idx.long() + rows * N).reshape(-1)
+    return _SortedGather.apply(x.reshape(B * N, C), flat).reshape(*idx.shape, C)

@@ -21,8 +21,9 @@ Data parallelism: the trainer is one rank of a mesh
 group: a mesh of one, no collective). Every rank is handed the same global
 batch and an equal generator. A step pads the scenes to a multiple of dp,
 draws the augmentation and the dropout masks for the padded global batch,
-augments that whole batch, takes this rank's block of scenes and of the
-dropout masks and row d of the dp-sharded pack, runs the model (BN moments and loss denominators over
+takes this rank's block of scenes, of those draws and of the dropout masks
+and row d of the dp-sharded pack, augments its block (the augmentation's
+rounding does not depend on the batch's shape), runs the model (BN moments and loss denominators over
 every rank), sums the gradients over the world and steps AdamW alike on
 every rank. Eval outputs are gathered in scene order and the padded scenes
 dropped. On an mp > 1 mesh no pack is used (the slot axes are sharded) and
@@ -127,17 +128,11 @@ class Trainer:
         per = S // mesh.dp
         lo, hi = mesh.dp_rank * per, (mesh.dp_rank + 1) * per
         pack = self._pack_for(padded)
-        if draws is None:
-            b = dp_block(padded, mesh).to(self.device)
-        else:
-            # every rank augments the whole global batch, then takes its
-            # block: on the card the augmentation's per-crop reductions round
-            # by the batch's shape (a block augmented alone gave relation
-            # crops 3e-7 off, which moved the step's gradients by 2e-2 of
-            # the largest)
-            b = dp_block(augment_batch_with(padded.to(self.device), draws.to(self.device)), mesh)
+        b = dp_block(padded, mesh).to(self.device)
+        if draws is not None:
+            b = augment_batch_with(b, draws.scenes(slice(lo, hi)).to(self.device))
         keep = {k: v[lo:hi].to(self.device) for k, v in keep.items()}
-        out = self.model(b, pack, train=True, generator=generator, dropout_keep=keep)
+        out = self.model(b, pack, train=True, dropout_keep=keep)
         loss, parts = sgpn_loss(out, b, self.w_obj, self.w_rel, self.cfg.model.lambda_o, group=mesh.dp_group)
         self.optimizer.zero_grad(set_to_none=True)
         (loss / mesh.mp if mesh.mp > 1 else loss).backward()

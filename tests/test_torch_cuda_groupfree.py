@@ -12,7 +12,11 @@ its eval forward against the CPU's.
   where the gap between the 128th and 129th seed logits is above twice
   their largest difference (the gap is asserted), the last head's outputs
   within 1e-4 of their largest value candidate by candidate (float32, TF32
-  off).
+  off);
+* two runs of two full-width B = 2 ``GroupFreeTrainer`` steps from one
+  seed on one batch end in the same parameters, BN statistics and
+  optimizer moments, bit for bit (the gathers' backward adds in a sorted
+  order, ``ops.interpolate.gather_rows``).
 
 Every test carries the ``cuda`` marker and skips inside the test when no
 card is present. This file imports no JAX:
@@ -102,3 +106,35 @@ def test_detector_forward_on_the_card_equals_the_cpu(card):
     for key, w in want["last"].items():
         diff = float((got["last"][key].cpu()[:, perm] - w).abs().max())
         assert diff <= 1e-4 * float(w.abs().max()), (key, diff)
+
+
+def test_train_steps_are_reproducible_on_the_card(card):
+    from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
+
+    B, K2, k = 2, 64, 4
+    pc, msa = scan(4, B).numpy(), mean_sizes().numpy()
+    rng = np.random.default_rng(5)
+    center = np.full((B, K2, 3), 1000.0, np.float32)
+    center[:, :k] = rng.uniform([-2.0, 0.3, -2.0], [2.0, 1.0, 2.0], (B, k, 3))
+    size_class = np.zeros((B, K2), np.int64)
+    size_class[:, :k] = np.arange(k)
+    size = np.zeros((B, K2, 3), np.float32)
+    size[:, :k] = msa * rng.uniform(0.8, 1.2, (B, k, 3))
+    mask = np.zeros((B, K2), np.float32)
+    mask[:, :k] = 1
+    d = ((pc[:, :, None, :3] - center[:, None, :k]) ** 2).sum(-1)
+    gt = {"center": center, "size": size, "size_class": size_class, "size_residual": size - msa[size_class],
+          "heading_class": rng.integers(0, 12, (B, K2)), "sem_class": size_class.copy(), "mask": mask,
+          "heading_residual": rng.uniform(-0.2, 0.2, (B, K2)).astype(np.float32)}
+    label = np.where(d.min(-1) < 0.25, d.argmin(-1), -1)
+    states = []
+    for _ in range(2):
+        tr = GroupFreeTrainer(device=card, seed=0)
+        for _ in range(2):
+            tr.train_step(pc, msa, label, gt)
+        states.append((tr.model.state_dict(), tr.optimizer.state_dict()["state"]))
+    (m0, o0), (m1, o1) = states
+    for key, v in m0.items():
+        assert torch.equal(m1[key], v), key
+    for i, s in o0.items():
+        assert all(torch.equal(o1[i][key], v) for key, v in s.items()), i

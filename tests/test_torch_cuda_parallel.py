@@ -6,7 +6,8 @@ GPU), whose step must equal one process's (loss rtol 2e-4, gradients 1e-2
 of the largest: a 1e-5 forward difference can flip a max-pool's slot) with
 the same parameters on both ranks, and whose dp = 2 serving F1 must equal
 dp = 1's within 1e-6. ``chip_smoke.py``'s ``dp`` phase does the same at
-full width; these run the ``tiny`` config.
+full width; these run the ``tiny`` config. And a block of scenes augmented
+alone on the card equals that block of the batch augmented, bit for bit.
 
 Every test carries the ``cuda`` marker and skips inside the test when no
 card is present. This file imports no JAX:
@@ -71,3 +72,26 @@ def test_two_gloo_ranks_on_one_card_equal_one_process(card):
         assert torch.equal(ranks[1][0]["state"][k], v), k
     assert all(abs(r[1]["f1"] - one[1]["f1"]) <= 1e-6 for r in ranks)
     assert got["launches"]["group.fwd"] > 0 and ranks[0][1]["serving_launches"]["serving_sa1.mlp"] > 0
+
+
+def test_a_block_augments_on_the_card_as_in_the_whole_batch(card):
+    """A rank's block of scenes augmented alone on the card equals those
+    scenes of the whole batch augmented, bit for bit (the augmentation's
+    arithmetic does not depend on the batch's shape), so each rank augments
+    only its block."""
+    import dataclasses as dc
+
+    from or4d_tpu_torch.config import DatasetConfig
+    from or4d_tpu_torch.data.augment import augment_batch_with, draw_augment
+
+    batch = SceneBatch.stack(make_scene_samples(4, seed=6, n_objects=9, ds=DatasetConfig(), points_per_obj=2000))
+    batch = batch.to("cuda")
+    S, O, E = 4, batch.obj_points.shape[1], batch.rel_points.shape[1]
+    draws = draw_augment(S, O, E, torch.Generator().manual_seed(2))
+    whole = augment_batch_with(batch, draws.to("cuda"))
+    for lo, hi in ((0, 2), (2, 4), (1, 2)):
+        block = dc.replace(batch, **{f: getattr(batch, f)[lo:hi] for f in (
+            "obj_points", "rel_points", "rel_hand_points", "gt_rels")})
+        got = augment_batch_with(block, draws.scenes(slice(lo, hi)).to("cuda"))
+        assert torch.equal(got.obj_points, whole.obj_points[lo:hi]), (lo, hi)
+        assert torch.equal(got.rel_points, whole.rel_points[lo:hi]), (lo, hi)

@@ -19,7 +19,9 @@ variables carried over by ``convert.groupfree_from_jax_variables``.
   within rounding);
 * ``decode_boxes``, the NMS and the AP against the JAX functions;
 * the decoder's attention dropout: live in train mode, drawn from the
-  generator passed in, off at rate 0.
+  generator passed in, off at rate 0;
+* the gathers' backward (``ops.interpolate.gather_rows``) and two
+  ``GroupFreeTrainer`` runs reproducible bit for bit.
 
 Trap guards, asserted on each test's own inputs: the JAX package's XLA
 ball query (the |a|^2+|b|^2-2ab expansion) selects the same indices as the
@@ -455,3 +457,69 @@ def test_attention_dropout_is_live_in_train_mode_and_drawn_from_the_generator():
         off = layer(q, qp, k, kp, train=True, generator=torch.Generator().manual_seed(5))
     assert torch.equal(a, b) and not torch.equal(a, c) and not torch.allclose(a, ev, atol=1e-3)
     assert torch.equal(off, ev)
+
+
+def test_gather_rows_backward_is_reproducible_and_sums_repeated_rows():
+    """``ops.interpolate.gather_rows`` (the detector's gathers): the forward
+    is indexing; the backward adds a repeated index's cotangent rows in the
+    indices' stable sorted order, so it equals a float64 scatter-add within
+    float32 rounding (rows never gathered get 0) and is bit for bit the
+    same run after run on a threaded CPU, where the backwards of
+    ``torch.gather`` and of indexing add with atomics."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 300, 16)).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(rng.integers(0, 290, (2, 4000, 3)))
+    cot = torch.from_numpy(rng.standard_normal((2, 4000, 3, 16)).astype(np.float32))
+    rows = torch.arange(2)[:, None, None].expand_as(idx)
+    assert torch.equal(tint.gather_rows(x, idx), x.detach()[rows, idx])
+    grads = []
+    for _ in range(3):
+        x.grad = None
+        tint.gather_rows(x, idx).backward(cot)
+        grads.append(x.grad.clone())
+    want = torch.zeros(2, 300, 16, dtype=torch.float64).index_put_((rows, idx), cot.double(), accumulate=True)
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+    assert not grads[0][:, 290:].any()
+    np.testing.assert_allclose(grads[0].numpy(), want.numpy(), rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def train_batch(seed: int, B: int = B, N: int = N):
+    """(point clouds, mean sizes, point instance labels, gt) of a
+    ``GroupFreeTrainer.train_step``: four GT boxes a scan, one of each
+    class, points within 0.5 m of a centre labelled with its box."""
+    pc, msa = scene(seed, B, N)
+    rng = np.random.default_rng(seed + 1)
+    K2, k = 64, 4
+    center = np.full((B, K2, 3), 1000.0, np.float32)
+    center[:, :k] = rng.uniform([-2.0, 0.3, -2.0], [2.0, 1.0, 2.0], (B, k, 3))
+    size_class = np.zeros((B, K2), np.int64)
+    size_class[:, :k] = np.arange(k)
+    size = np.zeros((B, K2, 3), np.float32)
+    size[:, :k] = msa * rng.uniform(0.8, 1.2, (B, k, 3))
+    mask = np.zeros((B, K2), np.float32)
+    mask[:, :k] = 1
+    d = ((pc[:, :, None, :3] - center[:, None, :k]) ** 2).sum(-1)
+    gt = {"center": center, "size": size, "size_class": size_class, "size_residual": size - msa[size_class],
+          "heading_class": rng.integers(0, 12, (B, K2)), "sem_class": size_class.copy(), "mask": mask,
+          "heading_residual": rng.uniform(-0.2, 0.2, (B, K2)).astype(np.float32)}
+    return pc, msa, np.where(d.min(-1) < 0.25, d.argmin(-1), -1), gt
+
+
+def test_train_steps_are_reproducible():
+    """Two runs of two ``GroupFreeTrainer`` steps from one seed on one batch
+    end in the same parameters, BN statistics and optimizer moments, bit for
+    bit (on the card: ``tests/test_torch_cuda_groupfree.py``)."""
+    from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
+
+    batch = train_batch(8, N=2048)
+    states = []
+    for _ in range(2):
+        tr = GroupFreeTrainer(device="cpu", seed=0)
+        for _ in range(2):
+            tr.train_step(*batch)
+        states.append((tr.model.state_dict(), tr.optimizer.state_dict()["state"]))
+    (m0, o0), (m1, o1) = states
+    for k, v in m0.items():
+        assert torch.equal(m1[k], v), k
+    for i, s in o0.items():
+        assert all(torch.equal(o1[i][k], v) for k, v in s.items()), i

@@ -2,8 +2,9 @@
 one process: dp-sharded ``SlotPack`` plans and ``gather_rows_local``
 (exact), the mesh's sizes, refusals and ``shard_batch`` rule (against the
 JAX shards on the conftest's virtual devices), ``TPUConfig``'s mesh keys,
-``ops.grouping`` and ``ops.scatter`` (empty segments included), and
-``utils.profiling``'s ``StepTimer`` and ``trace``.
+``ops.grouping`` and ``ops.scatter`` (empty segments included),
+``utils.profiling``'s ``StepTimer`` and ``trace``, and a dp block of
+scenes augmented alone against the same scenes of the batch augmented.
 """
 
 import dataclasses
@@ -210,3 +211,25 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads(path.read_text())["traceEvents"]
     assert path.parent == tmp_path / "tr" and any("mm" in str(e.get("name", "")) for e in events)
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_augmenting_a_block_equals_that_block_of_the_augmented_batch(dp):
+    """The augmentation is element-wise (a crop's sums are trees of adds, its
+    rotations 3 x 3 products summed in one order), so a dp rank's block of
+    scenes augmented alone equals those scenes of the whole batch augmented,
+    bit for bit: each rank augments only its block."""
+    from or4d_tpu_torch.data.augment import augment_batch_with, draw_augment
+
+    batch = _port_batch(_jbatch()).to("cpu")
+    S, O, E = batch.num_scenes, batch.obj_points.shape[1], batch.rel_points.shape[1]
+    draws = draw_augment(S, O, E, torch.Generator().manual_seed(2))
+    whole = augment_batch_with(batch, draws)
+    per = S // dp
+    for r in range(dp):
+        lo, hi = r * per, (r + 1) * per
+        block = dataclasses.replace(batch, **{f: getattr(batch, f)[lo:hi] for f in (
+            "obj_points", "rel_points", "rel_hand_points", "gt_rels")})
+        got = augment_batch_with(block, draws.scenes(slice(lo, hi)))
+        assert torch.equal(got.obj_points, whole.obj_points[lo:hi])
+        assert torch.equal(got.rel_points, whole.rel_points[lo:hi])

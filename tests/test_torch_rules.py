@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that are not numerics:
 
-* no module of ``or4d_tpu_torch`` (the train and ops modules included) and
-  not ``chip_smoke.py`` imports jax, flax, optax or the JAX package;
+* no module of ``or4d_tpu_torch`` (the train and ops modules included),
+  not ``chip_smoke.py`` and no script of ``tools/`` imports jax, flax,
+  optax or the JAX package;
 * entry points (``infer``, ``train``, ``serving``, and ``cli`` in every
   mode that uses a device, ``perception``'s detect tasks among them, with
   the L2 functions it calls) raise without a
@@ -47,7 +48,8 @@ def _imports(path: Path):
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
     assert len(files) > 10 and all(f.exists() for f in files)
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("ops/floyd_warshall", "models/graphormer", "pipeline/role_graphormer", "pipeline/role_dataset",
@@ -235,7 +237,8 @@ def test_paired_pack_rejects_unshared_batch():
 
 
 def test_port_imports_no_opencv_or_pil():
-    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "or4d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("data/cameras", "data/voxelpose_dataset", "data/higherhrnet_dataset", "models/voxelpose",
                    "models/higherhrnet", "pipeline/ae_grouping", "train/pose_metrics"):
