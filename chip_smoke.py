@@ -23,7 +23,9 @@ slice and train phases and the disk phase's host stages (ingest, roles,
 phases) and its ``--device cpu`` L2 reference.
 
 1. device  — the card's name and count, and nvidia-smi's name/power limit.
-2. build   — nvcc builds every kernel source; per kernel its registers,
+2. build   — the host compiler builds the host ingest library
+             (``data/csrc/ingest.cpp``), then nvcc every kernel source (one
+             process each, all at once); per kernel its registers,
              shared memory and spill bytes (ptxas -v), and per kernel the count
              of tensor-core instructions (HMMA) in its SASS (cuobjdump): the
              bfloat16 bodies of the fused SA stage and of the serving SA1 MLP
@@ -232,7 +234,18 @@ phases) and its ``--device cpu`` L2 reference.
              two sides' difference, ``detect_gate``) and ``instance-labels
              --boxes-dir`` on the card's boxes (``detect_stages``); the
              ingest (read + prep of every sample the later stages read,
-             into their cache); ``train
+             into their cache; ``ingest_pass``) twice: first with the plain
+             versions of the host ingest library wired in (the Python PCD
+             reader, the numpy sweep and crop), each call of them held
+             bit for bit against the library on the same inputs (the gate:
+             every scan's pcd in both encodings, the sweep at the object
+             and relation targets, the crop's indices and mask of every
+             directed edge), into a cache of its own; then with the
+             library, into the cache the later stages read, which must
+             equal the first bit for bit. Each pass's host seconds split
+             into PCD reads, chamfer human matching, object sweeps,
+             relation crops, relation sweeps, npz writes and the rest, and
+             its scans/s (``ingest_split``); ``train
              --strict-data`` (one epoch: two S=8 steps and the validation,
              a checkpoint); ``evaluate`` cold and ``--serving``; ``infer``
              from the checkpoint and with ``--torch-checkpoint`` of a random
@@ -865,9 +878,6 @@ def build_batches(S: int, seed: int):
                               pair_shared=True)
 
 
-PROFILE_GUARD_S = 0.05  # host wait between a recorded window's start and its run's first launch
-
-
 def profile_step(run, step_ms: float, groups=None, counted=None) -> dict:
     """Device time of one run by kernel name (torch.profiler, CUDA
     activity): the 12 largest, their sum over all kernels, the busy share of
@@ -893,13 +903,15 @@ def profile_step(run, step_ms: float, groups=None, counted=None) -> dict:
     fail(f"profile: the trace lost kernels in two attempts in a row: {lost}")
 
 
-def _profile_once(run, step_ms: float, groups, counted, guard_s: float = PROFILE_GUARD_S) -> dict:
+def _profile_once(run, step_ms: float, groups, counted, guard_s: float | None = None) -> dict:
     """One attempt of :func:`profile_step`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from or4d_tpu_torch.ops import launch_counts
+    from or4d_tpu_torch.utils.profiling import PROFILE_GUARD_S
 
+    guard_s = PROFILE_GUARD_S if guard_s is None else guard_s
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         run()
@@ -2095,6 +2107,144 @@ def dp_phase(seed: int, smi: str, results: dict) -> None:
     torch.cuda.empty_cache()  # the later phases measure their own peaks
 
 
+INGEST_PARTS = ("pcd_read", "chamfer_matching", "object_sweeps", "relation_crops", "relation_sweeps", "npz_write")
+
+
+def pcd_encoding(path) -> str:
+    with open(path, "rb") as f:
+        return f.read(4096).split(b"\nDATA ")[1].split(b"\n")[0].decode()
+
+
+def ingest_pass(root: Path, cache: Path, log: Path, plain: bool) -> dict:
+    """One ingest of the disk phase's samples (train; val pair-shared and
+    not; test ``for_eval``) through ``ORDataset`` into ``cache``: host
+    seconds and calls by part (``INGEST_PARTS`` and ``other``; PCD reads
+    also by encoding). ``plain``: the host library's plain versions are
+    wired in (``pcd_io.read_pcd_plain``, ``prep.downsample_sweep_plain``,
+    ``prep.crop_union_plain``), and the gate holds each of their calls bit
+    for bit against the library on the same inputs, and the sweep of every
+    scan read at the object and the relation targets too: a difference
+    fails the run. The gate's seconds (both versions a part, on the same
+    inputs) are kept out of the pass's."""
+    import contextlib
+
+    import numpy as np
+
+    from or4d_tpu_torch.config import load_config
+    from or4d_tpu_torch.data import ingest, pcd_io, prep
+    from or4d_tpu_torch.data.dataset import ORDataset
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+
+    cfg = load_config("no_gt")
+    targets = (cfg.dataset.num_points_objects, cfg.dataset.num_points_relation)
+    lib = {"read": pcd_io.read_pcd, "sweep": prep.downsample_sweep, "crop": prep.crop_union}
+    use = {"read": pcd_io.read_pcd_plain, "sweep": prep.downsample_sweep_plain,
+           "crop": prep.crop_union_plain} if plain else lib
+    orig = {"match": ingest.match_human_labels_to_gt, "savez": np.savez_compressed}
+    secs, calls = dict.fromkeys(INGEST_PARTS, 0.0), dict.fromkeys(INGEST_PARTS, 0)
+    by_encoding: dict[str, list] = {}  # PCD reads: encoding -> [seconds, calls]
+    gate = {"seconds": 0.0, "calls": {}, "plain_s": {}, "library_s": {}}
+
+    def timed(part, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        secs[part] += time.perf_counter() - t0
+        calls[part] += 1
+        return out
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    def check(part, name, *args, what=""):
+        """The plain version and the library on the same inputs, timed each."""
+        t0 = time.perf_counter()
+        want = use[name](*args)
+        t1 = time.perf_counter()
+        got = lib[name](*args)
+        t2 = time.perf_counter()
+        gate["seconds"] += t2 - t0
+        gate["calls"][part] = gate["calls"].get(part, 0) + 1
+        gate["plain_s"][part] = gate["plain_s"].get(part, 0.0) + t1 - t0
+        gate["library_s"][part] = gate["library_s"].get(part, 0.0) + t2 - t1
+        pairs = zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want)))
+        if not all(same(g, w) for g, w in pairs):
+            fail(f"ingest gate: the host library's {part} differs from its plain version on {what}")
+
+    def read(path):
+        enc = pcd_encoding(path)
+        t0 = time.perf_counter()
+        out = timed("pcd_read", use["read"], path)
+        e = by_encoding.setdefault(enc, [0.0, 0])
+        e[0] += time.perf_counter() - t0
+        e[1] += 1
+        if plain:
+            check(f"pcd_read_{enc}", "read", path, what=path)
+            for target in targets:
+                check(f"scan_sweep_{target}", "sweep", out, target, what=f"{path} -> {target}")
+        return out
+
+    def sweep(points, target):
+        part = "object_sweeps" if points.shape[1] == 6 else "relation_sweeps"
+        out = timed(part, use["sweep"], points, target)
+        if plain:
+            check(part, "sweep", points, target, what=f"{points.shape} -> {target}")
+        return out
+
+    def crop(points, labels, mn, mx, sub, obj):
+        out = timed("relation_crops", use["crop"], points, labels, mn, mx, sub, obj)
+        if plain:
+            check("relation_crops", "crop", points, labels, mn, mx, sub, obj,
+                  what=f"edge ({sub}, {obj}) of {len(points)} points")
+        return out
+
+    kw = dict(data_root=root, cache_dir=cache, synthetic_fallback=False)
+    n = 0
+    pcd_io.read_pcd, prep.downsample_sweep, prep.crop_union = read, sweep, crop
+    ingest.match_human_labels_to_gt = lambda *a, **k: timed("chamfer_matching", orig["match"], *a, **k)
+    np.savez_compressed = lambda *a, **k: timed("npz_write", orig["savez"], *a, **k)
+    t0 = time.perf_counter()
+    try:
+        with open(log, "a") as f, contextlib.redirect_stdout(f):
+            for split, extra in (("train", {}), ("val", {"pair_shared": True}), ("val", {"pair_shared": False}),
+                                 ("test", {"for_eval": True})):
+                ds = ORDataset(cfg, split, DEFAULT_VOCAB, **kw, **extra)
+                for i in range(len(ds)):
+                    ds.sample(i)
+                n += len(ds)
+    finally:
+        pcd_io.read_pcd, prep.downsample_sweep, prep.crop_union = lib["read"], lib["sweep"], lib["crop"]
+        ingest.match_human_labels_to_gt, np.savez_compressed = orig["match"], orig["savez"]
+    seconds = time.perf_counter() - t0 - gate["seconds"]
+    out = {"versions": "plain" if plain else "library", "samples": n, "seconds": seconds,
+           "ingest_scans_per_s": n / seconds, "split_s": {**secs, "other": seconds - sum(secs.values())},
+           "calls": calls, "pcd_read_by_encoding": {k: {"seconds": v[0], "calls": v[1]} for k, v in by_encoding.items()}}
+    if plain:
+        out["gate"] = gate
+        need = {"pcd_read_binary", "pcd_read_binary_compressed", "relation_crops", *(f"scan_sweep_{t}" for t in targets)}
+        if not need <= set(gate["calls"]):
+            fail(f"ingest gate: the root did not exercise every part of the library: {gate['calls']}")
+    return out
+
+
+def same_caches(a: Path, b: Path) -> dict:
+    """Whether two ingest caches hold the same samples bit for bit."""
+    import numpy as np
+
+    names = sorted(p.relative_to(a).as_posix() for p in a.rglob("*.npz"))
+    differ = []
+    if names != sorted(p.relative_to(b).as_posix() for p in b.rglob("*.npz")):
+        differ.append("file names")
+    for name in names:
+        with np.load(a / name, allow_pickle=True) as x, np.load(b / name, allow_pickle=True) as y:
+            for k in x.files:
+                u, v = x[k], y[k]
+                ok = (u.item() == v.item()) if u.dtype == object else (
+                    u.dtype == v.dtype and u.shape == v.shape and u.tobytes() == v.tobytes())
+                if not ok:
+                    differ.append(f"{name}:{k}")
+    return {"samples": len(names), "differing": differ}
+
+
 def disk_phases(args, smi, results, stats) -> None:
     """The disk phase (see the module docstring): a data root in the release
     layout written with the port's writers into a temporary directory, then
@@ -2159,20 +2309,20 @@ def disk_phases(args, smi, results, stats) -> None:
         detect = detect_stages(root, tmp, args.seed, log, stages, launches)
 
         # ingest: read + prep of every sample the CLI stages below read, into
-        # their cache (train; val paired for train's validation and evaluate;
-        # val unpaired for serving; test for infer)
+        # their cache; first with the plain versions (and the gate), then
+        # with the host library
         cfg = load_config("no_gt")
         kw = dict(data_root=root, cache_dir=cache, synthetic_fallback=False)
-        t0 = time.perf_counter()
-        n_ingest = 0
-        with open(log, "a") as f, contextlib.redirect_stdout(f):
-            for split, extra in (("train", {}), ("val", {"pair_shared": True}), ("val", {"pair_shared": False}),
-                                 ("test", {"for_eval": True})):
-                ds = ORDataset(cfg, split, DEFAULT_VOCAB, **kw, **extra)
-                for i in range(len(ds)):
-                    ds.sample(i)
-                n_ingest += len(ds)
-        stages["ingest"] = time.perf_counter() - t0
+        ingest_plain = ingest_pass(root, tmp / "cache_plain", log, plain=True)
+        ingest_lib = ingest_pass(root, cache, log, plain=False)
+        stages["ingest"], stages["ingest_plain"] = ingest_lib["seconds"], ingest_plain["seconds"]
+        n_ingest = ingest_lib["samples"]
+        caches = same_caches(cache, tmp / "cache_plain")
+        emit({"phase": "ingest_split", "card": smi, "plain": ingest_plain, "library": ingest_lib,
+              "caches_equal": caches})
+        if caches["differing"] or not caches["samples"]:
+            fail(f"ingest: the library's cache differs from the plain versions': {caches}")
+        shutil.rmtree(tmp / "cache_plain")
 
         base = ["--config", "no_gt", "--data-root", str(root), "--cache-dir", str(cache), "--strict-data",
                 "--seed", str(args.seed)]
@@ -2309,6 +2459,7 @@ def disk_phases(args, smi, results, stats) -> None:
         "card": smi, "config": "no_gt", "scans": info["scans"], "points_per_scan": info["points_per_scan"],
         "binary_compressed_pcds": info["compressed"], "data_bytes": data_bytes, "stage_host_seconds": stages,
         "ingest_scans": n_ingest, "ingest_scans_per_s": n_ingest / stages["ingest"],
+        "ingest_plain_scans_per_s": n_ingest / stages["ingest_plain"],
         "infer_scans_per_s": info["scans"]["test"] / stages["infer"],
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         # the process's peak since it started (earlier phases included)
@@ -3422,6 +3573,7 @@ def main(argv=None) -> int:
         emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "nvidia_smi": smi, "torch": torch.__version__})
         largest_batch_phase(args.seed, smi, False)
         return 0
+    from or4d_tpu_torch.data import ingest_lib
     from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
     from or4d_tpu_torch.infer import predict_relations
     from or4d_tpu_torch.models import SGPN
@@ -3439,6 +3591,9 @@ def main(argv=None) -> int:
     results = {"device": card}
 
     t0 = time.perf_counter()
+    ingest_lib.build()  # the host ingest library (the host compiler)
+    host_library_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     paths = _build.build_all()
     ptxas = {n: ptxas_summary(_build.build_log.get(n, "")) for n in paths}
     sass = sass_listings(paths)
@@ -3446,6 +3601,7 @@ def main(argv=None) -> int:
     # row 10's inner loop, instruction by instruction (its time is issue-bound)
     bounds_loop = sass_loop_mix(sass["ball_query_bounds"], "bounds") if sass is not None else None
     results["build"] = {"seconds": time.perf_counter() - t0, "per_source_s": _build.build_seconds,
+                        "host_library_s": host_library_s,
                         "ptxas": ptxas, "sass_hmma": hmma, "sass_bounds_loop": bounds_loop}
     emit({"phase": "build", **results["build"]})
     # the bfloat16 bodies of the fused SA stage and of the serving SA1 MLP

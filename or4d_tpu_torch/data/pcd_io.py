@@ -1,18 +1,18 @@
-"""Point-cloud file IO in numpy (port of ``or4d_tpu/data/pcd_io.py``).
+"""Point-cloud file IO (port of ``or4d_tpu/data/pcd_io.py``).
 
 The reference reads scans with open3d (`o3d.io.read_point_cloud`,
-dataset_utils.py:70). The JAX package reads them through its native C++
-library and keeps a numpy reader that cannot decode ``binary_compressed``
-files; the port reads all three PCD v0.7 encodings (ascii, binary,
-binary_compressed) in numpy and Python, with its own LZF codec, and uses no
-native library.
+dataset_utils.py:70). The port reads all three PCD v0.7 encodings (ascii,
+binary, binary_compressed) through its own host library
+(:mod:`or4d_tpu_torch.data.ingest_lib`, ``data/csrc/ingest.cpp``):
+:func:`read_pcd` is that library's reader. The numpy and Python reader with
+its own LZF codec, :func:`read_pcd_plain` and :func:`lzf_decompress`, is the
+plain version the tests hold the library against; no ingest path calls it.
 
 A ``binary_compressed`` body is two little-endian uint32 (the compressed
 and the uncompressed size) and then the LZF stream, whose decompressed data
 is field-major: every point's x, then every point's y, and so on (PCL's
 ``PCDWriter::writeBinaryCompressed``), not a sequence of records.
 """
-
 from __future__ import annotations
 
 from pathlib import Path
@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from or4d_tpu_torch.config import DEPTH_SCALING
+from or4d_tpu_torch.data.ingest_lib import read_pcd  # noqa: F401  (the library's reader)
 
 _NP_TYPES = {("F", 4): "f4", ("F", 8): "f8", ("U", 1): "u1", ("U", 2): "u2", ("U", 4): "u4",
              ("I", 1): "i1", ("I", 2): "i2", ("I", 4): "i4"}
@@ -114,15 +115,16 @@ def lzf_compress(data: bytes) -> bytes:
 
 def _rgb01(packed: np.ndarray) -> np.ndarray:
     """Packed 0x00RRGGBB (as uint32) -> (N, 3) float32 in 0..1, divided in
-    float32 as the native reader divides."""
+    float32."""
     packed = np.asarray(packed, np.uint32)
     chans = [(packed >> 16) & 0xFF, (packed >> 8) & 0xFF, packed & 0xFF]
     return np.stack([c.astype(np.float32) / np.float32(255.0) for c in chans], axis=1)
 
 
-def read_pcd(path: str | Path) -> np.ndarray:
+def read_pcd_plain(path: str | Path) -> np.ndarray:
     """Read a PCD v0.7 file (ascii, binary or binary_compressed) ->
-    (N, 6) float32 [xyz, rgb in 0..1]; rgb is 0 without a color field."""
+    (N, 6) float32 [xyz, rgb in 0..1]; rgb is 0 without a color field. The
+    plain version of :func:`read_pcd`, in numpy and Python."""
     path = str(path)
     header: dict[str, list[str]] = {}
     with open(path, "rb") as f:

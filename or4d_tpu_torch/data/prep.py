@@ -20,8 +20,11 @@ deterministic re-spec with the same density-equalizing distribution. The
 random final subset uses an explicit numpy Generator so cached samples are
 reproducible.
 
-The port keeps the reference package's numpy branches (voxel sweep and
-union crop); the native ingest library is not used.
+The voxel sweep and the union crop run in the port's host library
+(:mod:`or4d_tpu_torch.data.ingest_lib`): :func:`downsample_sweep` and
+:func:`crop_union`. Their numpy versions, :func:`voxel_downsample_indices`,
+:func:`downsample_sweep_plain` and :func:`crop_union_plain`, are the plain
+versions the tests hold the library against; no ingest path calls them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 
 from or4d_tpu_torch.config import DatasetConfig
+from or4d_tpu_torch.data import ingest_lib
 from or4d_tpu_torch.data.scene_batch import SceneSample
 from or4d_tpu_torch.data.vocab import Vocab, objname_to_type_index
 
@@ -64,21 +68,46 @@ def voxel_downsample_indices(xyz: np.ndarray, voxel_size: float) -> np.ndarray:
     return np.sort(keep)
 
 
-def calculate_downsample_indices(points: np.ndarray, target_n: int, rng: np.random.Generator) -> np.ndarray:
-    """The reference's sweep (data_preparation_utils.py:37-49): coarsen the
-    voxel size until <= target remains, keep the last choice above target,
-    then draw the final subset."""
-    n = len(points)
-    if n < target_n:
-        return rng.choice(n, target_n, replace=True)
-    best = np.arange(n)
+def downsample_sweep_plain(points: np.ndarray, target_n: int) -> np.ndarray:
+    """The reference's sweep (data_preparation_utils.py:37-49) in numpy:
+    coarsen the voxel size until <= target remains and keep the last choice
+    above target (every index when the first is not above it)."""
+    best = np.arange(len(points))
     for size in _VOXEL_SWEEP:
         choice = voxel_downsample_indices(points[:, :3], float(size))
         if len(choice) > target_n:
             best = choice
         else:
             break
+    return best
+
+
+def downsample_sweep(points: np.ndarray, target_n: int) -> np.ndarray:
+    """:func:`downsample_sweep_plain` in the host library, bit-equal."""
+    return ingest_lib.voxel_sweep(points, target_n, _VOXEL_SWEEP, _MAX_PER_VOXEL)
+
+
+def calculate_downsample_indices(points: np.ndarray, target_n: int, rng: np.random.Generator) -> np.ndarray:
+    """The reference's sweep, then the final subset drawn from ``rng``."""
+    n = len(points)
+    if n < target_n:
+        return rng.choice(n, target_n, replace=True)
+    best = downsample_sweep(points, target_n)
     return best[rng.choice(len(best), target_n, replace=False)]
+
+
+def crop_union_plain(points: np.ndarray, labels: np.ndarray, mn, mx, sub: int, obj: int):
+    """The union crop in numpy: indices of the points strictly inside
+    (mn, mx) on all three axes, and their mask channel (float32: 1 for the
+    label ``sub``, 2 for ``obj``, else 0)."""
+    inside = np.flatnonzero(np.all((points[:, :3] > mn) & (points[:, :3] < mx), axis=1))
+    lab = labels[inside]
+    return inside, (lab == sub).astype(np.float32) * 1.0 + (lab == obj).astype(np.float32) * 2.0
+
+
+def crop_union(points: np.ndarray, labels: np.ndarray, mn, mx, sub: int, obj: int):
+    """:func:`crop_union_plain` in the host library, in one pass, bit-equal."""
+    return ingest_lib.crop_union(points, labels, mn, mx, sub, obj)
 
 
 def prepare_scene(
@@ -131,14 +160,14 @@ def prepare_scene(
     gt_class = np.zeros((O,), np.int32)
     obj_mask = np.zeros((O,), bool)
     bboxes = []
-    point_masks = []  # per slot: boolean point membership
+    slot_labels = np.full(len(points), -1, np.int32)  # per point: its slot, -1 for none
     for s, (inst_id, name) in enumerate(zip(slot_ids, names)):
         sel = instances == inst_id
         pts = points[sel]
         if len(pts) == 0:
             raise ValueError(f"instance {inst_id} ({name}) has no points")
         bboxes.append((pts[:, :3].min(0) - bbox_padding, pts[:, :3].max(0) + bbox_padding))
-        point_masks.append(sel)
+        slot_labels[sel] = s
         choice = calculate_downsample_indices(pts, Po, rng)
         crop = pts[choice].astype(np.float32)
         crop[:, :3], _ = zero_mean(crop[:, :3])
@@ -174,9 +203,8 @@ def prepare_scene(
         """Sampled, zero-meaned union crop for directed edge (a, b)."""
         mn = np.minimum(bboxes[a][0], bboxes[b][0])
         mx = np.maximum(bboxes[a][1], bboxes[b][1])
-        inside = np.all((points[:, :3] > mn) & (points[:, :3] < mx), axis=1)
-        mask_channel = point_masks[a].astype(np.float32) * 1.0 + point_masks[b].astype(np.float32) * 2.0
-        pts7 = np.concatenate([points, mask_channel[:, None]], axis=1)[inside]
+        idx, mask_channel = crop_union(points, slot_labels, mn, mx, a, b)
+        pts7 = np.concatenate([points[idx], mask_channel[:, None]], axis=1)
         choice = calculate_downsample_indices(pts7, Pr, rng)
         crop = pts7[choice].astype(np.float32)
         crop[:, :3], info = zero_mean(crop[:, :3])

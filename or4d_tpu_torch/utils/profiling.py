@@ -5,6 +5,12 @@ package's does; :func:`trace` records a ``torch.profiler`` trace (host ops,
 and the card's kernels and copies where one is present) around a block and
 writes it into ``log_dir`` as a Chrome trace (``chrome://tracing``,
 Perfetto).
+
+On the card, kernels launched right at the start of a ``torch.profiler``
+window have been missing from its trace (2 of 30 traces of a Group-Free
+forward lost its first FPS kernel; none of 30 did with the guard below), so
+a window opens with a guard: the host waits for the card, then
+``PROFILE_GUARD_S``, before the block's first launch.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import tempfile
 import time
 from collections import deque
 from pathlib import Path
+
+PROFILE_GUARD_S = 0.05  # host wait between a trace window's start and the block's first launch
 
 
 class StepTimer:
@@ -42,7 +50,8 @@ def trace(log_dir: str | os.PathLike | None = None):
     """A ``torch.profiler`` trace of the block (CPU activity, and CUDA
     activity when a card is present), written on exit to
     ``log_dir/trace_<pid>.json`` (default ``log_dir``: ``or4d_torch_trace``
-    under the temp dir); yields that path."""
+    under the temp dir); yields that path. With a card, the window's first
+    launch waits for the card and ``PROFILE_GUARD_S`` (see the module)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,6 +60,9 @@ def trace(log_dir: str | os.PathLike | None = None):
     path.parent.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     with profile(activities=activities) as prof:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GUARD_S)
         yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()

@@ -8,6 +8,10 @@ the same parameters on both ranks, and whose dp = 2 serving F1 must equal
 dp = 1's within 1e-6. ``chip_smoke.py``'s ``dp`` phase does the same at
 full width; these run the ``tiny`` config. And a block of scenes augmented
 alone on the card equals that block of the batch augmented, bit for bit.
+And ``utils.profiling.trace`` loses no kernel: in 30 traces of the
+Group-Free B = 1 eval forward, whose first launch is FPS, each trace holds
+as many of the port's FPS and ball-query kernels as the launch counters
+rose in its window.
 
 Every test carries the ``cuda`` marker and skips inside the test when no
 card is present. This file imports no JAX:
@@ -95,3 +99,40 @@ def test_a_block_augments_on_the_card_as_in_the_whole_batch(card):
         got = augment_batch_with(block, draws.scenes(slice(lo, hi)).to("cuda"))
         assert torch.equal(got.obj_points, whole.obj_points[lo:hi]), (lo, hi)
         assert torch.equal(got.rel_points, whole.rel_points[lo:hi]), (lo, hi)
+
+
+def test_trace_keeps_every_kernel_of_its_window(card, tmp_path):
+    import json
+
+    from or4d_tpu_torch.ops import launch_counts
+    from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
+    from or4d_tpu_torch.utils.profiling import trace
+
+    model = GroupFreeTrainer(device="cuda", seed=0).model.eval()
+    rng = np.random.default_rng(14)
+    xyz = rng.uniform([-2.5, 0.0, -2.5], [2.5, 2.0, 2.5], (1, 20000, 3))
+    pc = torch.from_numpy(np.concatenate([xyz, rng.uniform(-0.5, 0.5, (1, 20000, 3))], -1).astype(np.float32))
+    pc = pc.cuda()
+    msa = torch.tensor(((0.6, 1.0, 0.5), (2.0, 0.8, 0.7), (1.2, 0.9, 0.6), (0.8, 0.8, 0.6)), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model(pc, msa, train=False)
+
+    forward()
+    torch.cuda.synchronize()
+    groups = {"fps": ("fps",), "ball_query": ("ball_query", "multiscale")}  # kernel names -> counter prefixes
+    lost = []
+    for i in range(30):
+        before = launch_counts()
+        with trace(tmp_path / str(i)) as path:
+            forward()
+        after = launch_counts()
+        kernels = [e["name"].lower() for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"]
+        for g, names in groups.items():
+            traced = sum(any(k in name for k in names) for name in kernels)
+            rose = sum(n - before.get(c, 0) for c, n in after.items() if c.startswith(g + "."))
+            assert rose > 0, (g, after)
+            if traced != rose:
+                lost.append({"trace": i, "group": g, "traced": traced, "launched": rose})
+    assert not lost, lost

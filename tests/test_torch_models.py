@@ -60,7 +60,7 @@ class TestLayers:
     def test_batchnorm_running_stats(self):
         x = np.random.default_rng(0).standard_normal((3, 5, 16)).astype(np.float32)
         bn = JBN(16)
-        v = randomize(bn.init(jax.random.key(0), jnp.asarray(x), train=False), 1)
+        v = randomize(jax.eval_shape(lambda: bn.init(jax.random.key(0), jnp.asarray(x), train=False)), 1)
         want = bn.apply(v, jnp.asarray(x), train=False)
         got = load(MaskedBatchNorm(16), v)(t(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -70,7 +70,7 @@ class TestLayers:
         x = rng.standard_normal((3, 7, 16)).astype(np.float32) * 3.0
         mask = rng.uniform(size=(3, 7)) > 0.4
         bn = JBN(16, track_running_stats=False)
-        v = randomize(bn.init(jax.random.key(0), jnp.asarray(x), train=False), 2)
+        v = randomize(jax.eval_shape(lambda: bn.init(jax.random.key(0), jnp.asarray(x), train=False)), 2)
         want = bn.apply(v, jnp.asarray(x), mask=jnp.asarray(mask), train=False)
         got = load(MaskedBatchNorm(16, track_running_stats=False), v)(t(x), t(mask))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -81,7 +81,7 @@ class TestLayers:
         x = rng.standard_normal((2, 9, 24)).astype(np.float32)
         mask = rng.uniform(size=(2, 9)) > 0.3
         mlp = JMLP((32, 20), on_last=on_last)
-        v = randomize(mlp.init(jax.random.key(0), jnp.asarray(x), train=False), 3)
+        v = randomize(jax.eval_shape(lambda: mlp.init(jax.random.key(0), jnp.asarray(x), train=False)), 3)
         want = mlp.apply(v, jnp.asarray(x), mask=jnp.asarray(mask), train=False)
         got = load(MLP(24, (32, 20), on_last=on_last), v)(t(x), t(mask))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
@@ -98,7 +98,7 @@ class TestGCNAndHeads:
         em = rng.uniform(size=(S, E)) > 0.3
         gcn = JGCN(num_layers=2, dim_node=D, dim_edge=D, dim_hidden=H)
         args = tuple(jnp.asarray(a) for a in (x, ef, ei, om, em))
-        v = randomize(gcn.init(jax.random.key(0), *args, train=False), 5)
+        v = randomize(jax.eval_shape(lambda: gcn.init(jax.random.key(0), *args, train=False)), 5)
         wx, we = gcn.apply(v, *args, train=False)
         gx, ge = load(TripletGCN(2, D, D, H), v)(t(x), t(ef), t(ei), t(om), t(em))
         np.testing.assert_allclose(gx.numpy(), np.asarray(wx), rtol=2e-4, atol=2e-4)
@@ -109,12 +109,13 @@ class TestGCNAndHeads:
         x = rng.standard_normal((2, 7, 32)).astype(np.float32)
         onehot = (rng.uniform(size=(2, 7, 12)) > 0.8).astype(np.float32)
         oh = jheads.ObjectClsHead(12)
-        v = randomize(oh.init(jax.random.key(0), jnp.asarray(x), train=False), 7)
+        v = randomize(jax.eval_shape(lambda: oh.init(jax.random.key(0), jnp.asarray(x), train=False)), 7)
         got = load(theads.ObjectClsHead(32, 12), v)(t(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(oh.apply(v, jnp.asarray(x), train=False)),
                                    rtol=1e-5, atol=1e-5)
         rh = jheads.RelationClsHead(15)
-        v = randomize(rh.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(onehot), train=False), 8)
+        v = randomize(jax.eval_shape(lambda: rh.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(onehot),
+                                                     train=False)), 8)
         want = rh.apply(v, jnp.asarray(x), jnp.asarray(onehot), train=False)
         got = load(theads.RelationClsHead(32, 15), v)(t(x), t(onehot))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -130,7 +131,8 @@ class TestPointNet2:
         feats = rng.standard_normal((B, N, 5)).astype(np.float32)
         jscales = (JSAScale(0.15, 4, (16, 24)), JSAScale(0.3, 6, (16, 16)))
         mod = JSA(npoint=128, scales=jscales, fused_mode="eval_kernel", kernel_interpret=True, eval_subtile=32)
-        v = randomize(mod.init(jax.random.key(0), jnp.asarray(pc), jnp.asarray(feats), train=False), 9)
+        v = randomize(jax.eval_shape(lambda: mod.init(jax.random.key(0), jnp.asarray(pc), jnp.asarray(feats),
+                                                      train=False)), 9)
         want_xyz, want = mod.apply(v, jnp.asarray(pc), jnp.asarray(feats), train=False)
         port = load(SetAbstractionMSG(8, 128, (SAScale(0.15, 4, (16, 24)), SAScale(0.3, 6, (16, 16)))), v)
         got_xyz, got = port(t(pc), t(feats))
@@ -156,7 +158,7 @@ class TestPointNet2:
         bf16 = dtype == "bfloat16"
         enc = JEncoder(fused_mode="eval_kernel", kernel_interpret=True,
                        dtype=jnp.bfloat16 if bf16 else jnp.float32, **kw)
-        v = randomize(enc.init(jax.random.key(0), jnp.asarray(pc[..., :dim]), train=False), 10)
+        v = randomize(jax.eval_shape(lambda: enc.init(jax.random.key(0), jnp.asarray(pc[..., :dim]), train=False)), 10)
         want = enc.apply(v, jnp.asarray(pc), train=False, paired=paired).astype(jnp.float32)
         port = load(PointNet2MSGEncoder(dim, 32, sa_npoints=(64, 16), sa_nsamples=((4, 8), (8, 8)),
                                         dtype=torch.bfloat16 if bf16 else torch.float32), v)

@@ -109,7 +109,8 @@ def test_relation_head_with_image_fusion_equals_jax(multi_label):
     onehot = (rng.uniform(size=(2, 7, 12)) > 0.7).astype(np.float32)
     img = rng.standard_normal((2, 768)).astype(np.float32)
     jm = JRelHead(15, multi_label=multi_label)
-    v = randomize(jm.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(onehot), jnp.asarray(img), train=False), 5)
+    v = randomize(jax.eval_shape(lambda: jm.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(onehot),
+                                                 jnp.asarray(img), train=False)), 5)
     want = np.asarray(jm.apply(v, jnp.asarray(x), jnp.asarray(onehot), jnp.asarray(img), train=False))
     head = RelationClsHead(256, 15, image_features=768, multi_label=multi_label, device="cpu")
     head.load_state_dict(from_jax_variables(v, head))

@@ -16,10 +16,15 @@
 * no module of the port (nor ``chip_smoke.py``) imports OpenCV or PIL, which
   the card's machine does not have; the pose tasks of the CLI raise without
   a card too; and the port's CLI takes every mode and task of the JAX CLI
-  (nothing is refused as not ported).
+  (nothing is refused as not ported);
+* the port, ``chip_smoke.py`` and ``tools/`` name nothing of the JAX
+  package's native ingest runtime (no path into its directory, no library or
+  source of it, no ``#include`` of it), and every ingest path reads, sweeps
+  and crops through the port's own host library, never its plain versions.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -273,3 +278,44 @@ def _jax_cli_parser():
     scope = {"argparse": argparse, "__doc__": ast.get_docstring(tree) or ""}
     exec(compile(ast.Module(body=[fn], type_ignores=[]), "or4d_tpu/cli.py", "exec"), scope)
     return scope["build_parser"]()
+
+
+def test_port_names_nothing_of_the_jax_native_runtime():
+    sources = [f for f in sorted((ROOT / "or4d_tpu_torch").rglob("*"))
+               if f.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")] + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
+    assert (ROOT / "or4d_tpu_torch" / "data" / "csrc" / "ingest.cpp") in sources
+    pattern = re.compile(r"\bnative/|libor4d_ingest|or4d_ingest|#\s*include\s*[<\"][^>\"]*native")
+    bad = [(f.relative_to(ROOT).as_posix(), m) for f in sources for m in pattern.findall(f.read_text())]
+    assert not bad, bad
+
+
+def test_ingest_paths_call_no_plain_version(monkeypatch, tmp_path):
+    from or4d_tpu_torch import config as TC
+    from or4d_tpu_torch.data import ingest_lib, pcd_io, prep
+    from or4d_tpu_torch.data.dataset import ORDataset
+    from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
+    from or4d_tpu_torch.pipeline import instance_labels
+
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-1, 1, (500, 3)), rng.integers(0, 256, (500, 3)) / 255.0], 1)
+    pcd_io.write_pcd(tmp_path / "c.pcd", np.repeat(pts, 2, axis=0), compressed=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an ingest path called a plain version")
+
+    for mod, name in ((pcd_io, "read_pcd_plain"), (pcd_io, "lzf_decompress"), (prep, "voxel_downsample_indices"),
+                      (prep, "downsample_sweep_plain"), (prep, "crop_union_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    got = pcd_io.read_pcd(tmp_path / "c.pcd")
+    np.testing.assert_array_equal(got[::2, :3], pts[:, :3].astype(np.float32))
+    # the CLI's and the Group-Free dataset's readers take pcd_io.read_pcd when called
+    assert pcd_io.read_pcd is ingest_lib.read_pcd is instance_labels.read_pcd
+    cfg = TC.ExperimentConfig(
+        dataset=TC.DatasetConfig(num_points_objects=96, num_points_relation=128, max_objects=6, max_edges=30,
+                                 data_augmentation=False),
+        model=TC.ModelConfig(sa_npoints=(32, 16), sa_nsamples=((4, 8), (8, 8))), use_gt=True)
+    ds = ORDataset(cfg, "train", DEFAULT_VOCAB, data_root=Path(__file__).parent / "golden" / "real_data",
+                   cache_dir=tmp_path / "cache", synthetic_fallback=False)
+    sample = ds.sample(0)
+    assert sample.edge_mask.sum() > 0 and np.isfinite(sample.rel_points).all()

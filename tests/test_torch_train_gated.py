@@ -220,7 +220,7 @@ def test_encoder_train_raw_false_matches_jax():
     kw = dict(input_dim=7, out_size=32, sa_npoints=(32, 16), sa_nsamples=((4, 8), (8, 8)))
     enc = JEncoder(fused_mode="train_kernel", kernel_interpret=True, train_raw=False, packed_slots=True,
                    train_per_scale_sort=True, **kw)
-    v = randomize(enc.init(jax.random.key(0), jnp.asarray(pc), train=False), 16)
+    v = randomize(jax.eval_shape(lambda: enc.init(jax.random.key(0), jnp.asarray(pc), train=False)), 16)
     proj = rng.standard_normal((B, 32)).astype(np.float32)
 
     def jloss(params):

@@ -169,7 +169,8 @@ def test_sa_train_module_matches_tpu_default_path(case):
     mask = np.array([1.0, 0.0, 1.0], np.float32)
     mod = JSA(npoint=npoint, scales=jscales, fused_mode="train_kernel", kernel_interpret=True, train_raw=train_raw,
               packed_slots=True, train_per_scale_sort=True)
-    v = randomize(mod.init(jax.random.key(0), jnp.asarray(xyz), jnp.asarray(feats), train=False), 11)
+    v = randomize(jax.eval_shape(lambda: mod.init(jax.random.key(0), jnp.asarray(xyz), jnp.asarray(feats),
+                                                  train=False)), 11)
     width = sum(s.mlp[-1] for s in jscales)
     proj = rng.standard_normal((B, npoint, width)).astype(np.float32)
 
