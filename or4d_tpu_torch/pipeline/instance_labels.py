@@ -66,7 +66,8 @@ def oriented_box_to_grid(box: np.ndarray) -> np.ndarray:
 def skeleton_to_limb_points(joints: np.ndarray, radius: float = 30.0, segments: int = 16, rings_per_unit: float = 0.05) -> np.ndarray:
     """Skeleton -> limb-cylinder surface points (human_pose_to_joints /
     linemesh rebuild: one cylinder of the given radius per limb): 16 points
-    a ring, a ring every 20 units of limb length (at least 2 a limb)."""
+    a ring, a ring every 20 units of limb length (at least 2 a limb). A
+    skeleton whose limbs all have zero length has no points: (0, 3)."""
     pts = []
     for a, b in LIMBS:
         p0, p1 = joints[a], joints[b]
@@ -86,7 +87,7 @@ def skeleton_to_limb_points(joints: np.ndarray, radius: float = 30.0, segments: 
         ring = np.outer(np.cos(angs), u) + np.outer(np.sin(angs), v)
         for t in ts:
             pts.append(p0 + axis * t + ring * radius)
-    return np.concatenate(pts, axis=0)
+    return np.concatenate(pts, axis=0) if pts else np.zeros((0, 3))
 
 
 @contextlib.contextmanager
@@ -166,14 +167,19 @@ def label_objects(points: torch.Tensor, objects: list[tuple[str, np.ndarray]], i
 
 
 def human_masks(points: torch.Tensor, joints: np.ndarray):
-    """compute_human_instance_labels(:67-122): body mask + hand-exception mask."""
+    """compute_human_instance_labels(:67-122): body mask + hand-exception mask.
+    A skeleton collapsed to one point (as an untrained VoxelPose can
+    predict) has no limb surface and masks nothing."""
     dev = points.device
+    limb_pts = skeleton_to_limb_points(joints, radius=30.0)
+    if not len(limb_pts):
+        none = np.zeros(points.shape[0], bool)
+        return none, none.copy()
     head = joints[0]
     feet_center = np.mean([joints[12], joints[13]], axis=0)
     main_axis = int(np.abs(head - feet_center).argmax())
     positive = (head - feet_center)[main_axis] > 0
 
-    limb_pts = skeleton_to_limb_points(joints, radius=30.0)
     mn = limb_pts.min(0) - 100.0
     mx = limb_pts.max(0) + 100.0
     if positive:

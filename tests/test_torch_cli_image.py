@@ -10,7 +10,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from tests.test_torch_cli import TINY_JSON
 
@@ -20,16 +19,6 @@ from or4d_tpu_torch.data.dataset import ORDataset
 from or4d_tpu_torch.data.vocab import DEFAULT_VOCAB
 
 ROOT = Path(__file__).parent / "golden" / "real_data"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(path: Path, multi_rel: bool) -> str:

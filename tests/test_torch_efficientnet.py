@@ -35,16 +35,6 @@ from or4d_tpu_torch.utils.torch_import import export_reference_state_dict, impor
 TOL = 2e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _stats(variables, seed):
     """The flax variables with random BN statistics (means N(0, 0.1),
     variances in [0.5, 1.5]) and BN affines away from the identity."""

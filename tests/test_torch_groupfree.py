@@ -459,13 +459,29 @@ def test_attention_dropout_is_live_in_train_mode_and_drawn_from_the_generator():
     assert torch.equal(off, ev)
 
 
+# Intra-op threads for the two reproducibility tests, whatever the harness
+# gives the process: at one thread an atomic backward adds in one order and
+# would pass them; at 4, indexing's backward fails both.
+THREADED = 4
+
+
+@contextlib.contextmanager
+def threads(n: int):
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
 def test_gather_rows_backward_is_reproducible_and_sums_repeated_rows():
     """``ops.interpolate.gather_rows`` (the detector's gathers): the forward
     is indexing; the backward adds a repeated index's cotangent rows in the
     indices' stable sorted order, so it equals a float64 scatter-add within
     float32 rounding (rows never gathered get 0) and is bit for bit the
-    same run after run on a threaded CPU, where the backwards of
-    ``torch.gather`` and of indexing add with atomics."""
+    same run after run on a threaded CPU, where the backward of indexing
+    adds with atomics (that of ``torch.gather`` does on the card)."""
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((2, 300, 16)).astype(np.float32)).requires_grad_()
     idx = torch.from_numpy(rng.integers(0, 290, (2, 4000, 3)))
@@ -473,10 +489,11 @@ def test_gather_rows_backward_is_reproducible_and_sums_repeated_rows():
     rows = torch.arange(2)[:, None, None].expand_as(idx)
     assert torch.equal(tint.gather_rows(x, idx), x.detach()[rows, idx])
     grads = []
-    for _ in range(3):
-        x.grad = None
-        tint.gather_rows(x, idx).backward(cot)
-        grads.append(x.grad.clone())
+    with threads(THREADED):
+        for _ in range(3):
+            x.grad = None
+            tint.gather_rows(x, idx).backward(cot)
+            grads.append(x.grad.clone())
     want = torch.zeros(2, 300, 16, dtype=torch.float64).index_put_((rows, idx), cot.double(), accumulate=True)
     assert all(torch.equal(grads[0], g) for g in grads[1:])
     assert not grads[0][:, 290:].any()
@@ -508,16 +525,19 @@ def train_batch(seed: int, B: int = B, N: int = N):
 def test_train_steps_are_reproducible():
     """Two runs of two ``GroupFreeTrainer`` steps from one seed on one batch
     end in the same parameters, BN statistics and optimizer moments, bit for
-    bit (on the card: ``tests/test_torch_cuda_groupfree.py``)."""
+    bit (on the card: ``tests/test_torch_cuda_groupfree.py``). One scan of
+    2048 points, as many as the first SA level samples: the property does
+    not depend on size."""
     from or4d_tpu_torch.train.perception_trainers import GroupFreeTrainer
 
-    batch = train_batch(8, N=2048)
+    batch = train_batch(8, B=1, N=2048)
     states = []
-    for _ in range(2):
-        tr = GroupFreeTrainer(device="cpu", seed=0)
+    with threads(THREADED):
         for _ in range(2):
-            tr.train_step(*batch)
-        states.append((tr.model.state_dict(), tr.optimizer.state_dict()["state"]))
+            tr = GroupFreeTrainer(device="cpu", seed=0)
+            for _ in range(2):
+                tr.train_step(*batch)
+            states.append((tr.model.state_dict(), tr.optimizer.state_dict()["state"]))
     (m0, o0), (m1, o1) = states
     for k, v in m0.items():
         assert torch.equal(m1[k], v), k

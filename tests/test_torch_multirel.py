@@ -61,16 +61,6 @@ IMG = 32
 LR = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_prepare_scene_multi_hot_equals_jax():
     for seed in (1, 2):
         want = j_make_scene_sample(seed, n_objects=6, ds=J_TINY.dataset, points_per_obj=150, multi_rel=True)

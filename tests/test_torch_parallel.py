@@ -193,20 +193,15 @@ def ranks(setup):
 @pytest.fixture(scope="module")
 def one(setup):
     """The port's one-process results (no process group) of the scenarios,
-    each once, on one thread: {"plain", "aug", "three"} steps, "eval" and
-    "f1". The test's worker shares the CPU with the others."""
-    s, threads = setup, torch.get_num_threads()
+    each once: {"plain", "aug", "three"} steps, "eval" and "f1"."""
+    s = setup
     base = dict(weights=s["weights"], state=s["state"], cfg=_port_cfg(1))
     three = _three(s["batch"])
     jobs = [dict(base, cfg=_port_cfg(1, aug=name != "plain"), train=_jobs(s, 2)[i]["train"])
             for i, name in enumerate(CASES)]
     jobs += [dict(base, train=[dict(batch=three, keep={k: v[:3] for k, v in s["keeps"]["plain"].items()})]),
              dict(base, eval=[three, s["batch"]]), dict(base, serving=[s["batch"], three])]
-    torch.set_num_threads(1)
-    try:
-        res = trainer_jobs(jobs)
-    finally:
-        torch.set_num_threads(threads)
+    res = trainer_jobs(jobs)
     n = len(CASES)
     return {**dict(zip(CASES, res)), "three": res[n], "eval": res[n + 1]["eval"], "f1": res[n + 2]["f1"]}
 

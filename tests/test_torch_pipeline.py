@@ -174,6 +174,10 @@ def test_l2_pred_path_cli_equals_jax(tmp_path, jax_tpu_fps, recorded):
     assert len(recorded["clouds"]) == n_clouds and 8000 in {len(c) for c in recorded["clouds"]}
     _compare_dirs(tmp_path / "jax" / "instance_labels_pred", tmp_path / "port" / "instance_labels_pred", recorded,
                   lambda name: _points(*name[:-4].split("_")))
+    for take, scan in SCANS:  # every predicted human labels points
+        labels = np.load(tmp_path / "port" / "instance_labels_pred" / f"{take}_{scan}.npz")["arr_0"]
+        for name in til.poses_from_npy(poses_dir / f"pred_{take}_{scan}.npy"):
+            assert (labels == til.OBJECT_LABEL_MAP[name]).any(), (take, scan, name)
 
 
 def test_l2_loose_directory_mode_equals_jax(tmp_path, jax_tpu_fps, recorded):
@@ -187,6 +191,30 @@ def test_l2_loose_directory_mode_equals_jax(tmp_path, jax_tpu_fps, recorded):
     assert jcli.main(args + ["--output-dir", str(tmp_path / "jax")]) == 0
     assert cli.main(args + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"]) == 0
     _compare_dirs(tmp_path / "jax", tmp_path / "port", recorded, lambda name: _points(*name[:-4].split("_")))
+
+
+def test_a_collapsed_skeleton_labels_no_points(jax_tpu_fps, recorded):
+    """A predicted pose with every joint at one point (a barely trained
+    VoxelPose's soft-argmax over a flat heatmap puts them there) has no limb
+    surface: the JAX package gives a zero-length limb no surface points, and
+    labels a point only within 75 (150 at the wrists) of a surface sample.
+    So it labels nothing: beside the fixture's skeletons the port labels as
+    the JAX package does without it (which raises on the empty surface)."""
+    take, scan = 1, "000001"
+    points = _points(take, scan)
+    joints = np.load(ROOT / "human_name_to_3D_joints" / f"{take}_GT_True.npz", allow_pickle=True)["arr_0"].item()[scan]
+    collapsed = np.repeat(joints["human_0"][:1], 14, axis=0)
+    part = joints["human_0"].copy()
+    part[[9, 11]] = part[[8, 10]]  # two limbs of zero length
+    np.testing.assert_array_equal(til.skeleton_to_limb_points(part), jil.skeleton_to_limb_points(part))
+    assert til.skeleton_to_limb_points(collapsed).shape == (0, 3)
+    with pytest.raises(ValueError):
+        jil.skeleton_to_limb_points(collapsed)
+    start = np.full(len(points), -1, np.int8)
+    want = jil.label_humans(points, joints, start.copy())
+    got = til.label_humans(torch.from_numpy(points), {**joints, "human_2": collapsed}, start.copy())
+    assert_labels_match(got, want, points, recorded["tests"], scan)
+    assert all((got == til.OBJECT_LABEL_MAP[name]).sum() > 100 for name in joints)
 
 
 def test_fps_on_the_l2_clouds(tmp_path, recorded):

@@ -20,7 +20,6 @@ import functools
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 from or4d_tpu_torch import cli
@@ -32,16 +31,6 @@ from or4d_tpu_torch.train import perception_trainers as pt
 
 FRAMES = Path(__file__).parent / "golden" / "real_data" / "export_holistic_take1_processed"
 VOXELPOSE = dict(initial_cube=(12, 12, 12), fine_cube=(8, 8, 8), max_people=3)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tiny_pose(monkeypatch):

@@ -45,16 +45,6 @@ T = torch.from_numpy
 S = 64  # input size
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 class _Wrap(nn.Module):
     """One flax layer under a fixed name, for the converter's paths."""
 

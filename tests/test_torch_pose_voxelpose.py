@@ -54,16 +54,6 @@ SMALL = dict(initial_cube=(16, 16, 16), fine_cube=(8, 8, 8), max_people=3)
 T = torch.from_numpy
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def close(got, want, tol: float, what: str = "") -> None:
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)

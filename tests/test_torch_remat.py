@@ -27,16 +27,6 @@ from or4d_tpu_torch.train.loop import Trainer
 W = (np.linspace(0.5, 1.5, 12).astype(np.float32), np.linspace(0.5, 1.5, 15).astype(np.float32))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module's CPU convolutions and steps,
-    so the suite's other workers keep their cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _step(remat: bool, chunk: int | None = None, monkeypatch=None):
     if chunk is not None:
         monkeypatch.setattr(layers, "_BWD_CHUNK", chunk)
