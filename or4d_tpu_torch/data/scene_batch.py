@@ -2,12 +2,15 @@
 
 A scene is padded once to (max_objects, max_edges) static shapes so scenes
 stack into one batch; masks carry validity. Batches and packing plans are
-built on the host in numpy and moved to a device with ``.to(device)``.
+built on the host in numpy and moved to a device with ``.to(device)``; an
+eval batch moves with its host plan, ``.to(device, pack=plan)``, which sends
+only the crop rows the plan reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -55,20 +58,84 @@ _ARRAY_FIELDS = (
 )
 
 
+# The upload's counter, as the ops modules count their launches: calls that
+# sent only a pack's crop rows and calls that sent every padded slot; the crop
+# bytes (``obj_points``, ``rel_points``) sent and those left on the host.
+UPLOAD = {"packed_calls": 0, "full_calls": 0, "bytes_sent": 0, "bytes_skipped": 0}
+
+
 def _np(a: Any) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+def _to_tensor(a: Any, device: torch.device, pin: bool = False) -> torch.Tensor:
     """numpy -> torch on ``device``; integer arrays become int64 (index
-    tensors), everything else keeps its dtype."""
+    tensors), everything else keeps its dtype. ``pin``: staged in pinned
+    memory and copied without blocking (:func:`_send`)."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
     a = np.asarray(a)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if a.dtype.kind in "iu":
         t = t.long()
-    return t.to(device)
+    return _send(t, device, pin)
+
+
+def _host_buffer(shape: tuple, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    """An empty host tensor; pinned, from PyTorch's caching host allocator,
+    when ``pin``."""
+    return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+
+def _send(t: torch.Tensor, device: torch.device, pin: bool) -> torch.Tensor:
+    """Host tensor ``t`` on ``device``; with ``pin`` copied into a pinned
+    buffer first and from there without blocking. The caching host allocator
+    hands the buffer out again only after that copy has completed."""
+    if not pin:
+        return t.to(device)
+    return _host_buffer(tuple(t.shape), t.dtype, True).copy_(t).to(device, non_blocking=True)
+
+
+# Pieces a packed crop upload is cut into: each is copied to the card while
+# the next is gathered (on an H100 host, 516 MB of rows: 31 ms gathered
+# whole then copied, 25 ms in 4 pieces, 28 ms in 8).
+_PIECES = 4
+
+
+def _cuts(lo: int, hi: int, k: int) -> list[tuple[int, int]]:
+    """[lo, hi) cut into at most ``k`` nearly equal, non-empty ranges."""
+    c = np.linspace(lo, hi, max(1, min(k, hi - lo)) + 1).astype(np.int64)
+    return list(zip(c[:-1].tolist(), c[1:].tolist()))
+
+
+def _rows(a: Any, idx: Any, device: torch.device, pin: bool, pool: ThreadPoolExecutor,
+          threads: int) -> torch.Tensor:
+    """Rows ``idx`` of ``a`` (S, N, ...) with its two slot axes flattened,
+    (len(idx), ...) on ``device``. ``np.take`` over the (S * N, row) view
+    gathers them into a host buffer, a range of ``idx`` to each of
+    ``threads`` threads of ``pool`` (``np.take`` releases the GIL;
+    ``torch.index_select`` into pinned memory ran at a sixth of this speed
+    on an H100 host). With ``pin`` the buffer is pinned and gathered in
+    ``_PIECES`` pieces, each copied without blocking once it is whole."""
+    src = _np(a)
+    flat = src.reshape(src.shape[0] * src.shape[1], -1)
+    idx = _np(idx).astype(np.int64).reshape(-1)
+    if idx.size and (idx.min() < 0 or idx.max() >= flat.shape[0]):
+        raise IndexError(f"pack rows out of range for {flat.shape[0]} slots")
+    host = _host_buffer((idx.size, flat.shape[1]), torch.from_numpy(np.empty(0, flat.dtype)).dtype, pin)
+    out = torch.empty(host.shape, dtype=host.dtype, device=device) if pin else host
+    dst = host.numpy()
+
+    def take(lo: int, hi: int) -> None:
+        # mode="clip" writes straight into ``dst`` ("raise" buffers); the
+        # range is checked above
+        np.take(flat, idx[lo:hi], axis=0, out=dst[lo:hi], mode="clip")
+
+    for lo, hi in _cuts(0, idx.size, _PIECES if pin else 1):
+        list(pool.map(lambda r: take(*r), _cuts(lo, hi, threads)))
+        if pin:
+            out[lo:hi].copy_(host[lo:hi], non_blocking=True)
+    return out.view((idx.size,) + tuple(src.shape[2:]))
 
 
 @dataclasses.dataclass
@@ -120,11 +187,39 @@ class SceneBatch:
         return dataclasses.replace(b, **{f: grow(getattr(b, f)) for f in _ARRAY_FIELDS},
                                    images=None if b.images is None else grow(b.images))
 
-    def to(self, device: str | torch.device) -> "SceneBatch":
-        """The same batch with every array a tensor on ``device``."""
+    def to(self, device: str | torch.device, pack: "SlotPack | None" = None) -> "SceneBatch":
+        """The same batch with every array a tensor on ``device``.
+
+        ``pack``: the plan the eval forward will run this batch with, as
+        ``SlotPack.build`` makes it (a dp rank's row of a sharded one). Only
+        the crop rows it reads are sent, in its order: ``obj_points``
+        becomes (Co, Po, 6), the rows at ``obj_idx``, and ``rel_points``
+        (Cp, Pr, 7) at ``pair_idx`` for a paired plan, else (Ce, Pr, 7) at
+        ``edge_idx``; every other array keeps its padded layout, the masks
+        (S, O) and (S, E) among them. To a card every array is staged in
+        pinned memory (the crop rows gathered straight into it) and copied
+        without blocking, so the call does not wait for the card.
+        ``SGPN.forward`` takes such a batch with the same plan."""
         device = torch.device(device)
-        arrays = {f: _to_tensor(getattr(self, f), device) for f in _ARRAY_FIELDS}
-        images = None if self.images is None else _to_tensor(self.images, device)
+        padded_bytes = self.obj_points.nbytes + self.rel_points.nbytes
+        if pack is None:
+            arrays = {f: _to_tensor(getattr(self, f), device) for f in _ARRAY_FIELDS}
+            images = None if self.images is None else _to_tensor(self.images, device)
+            UPLOAD["full_calls"] += 1
+            UPLOAD["bytes_sent"] += padded_bytes
+            return dataclasses.replace(self, **arrays, images=images)
+        pin = device.type == "cuda"
+        rows = {"obj_points": pack.obj_idx, "rel_points": pack.pair_idx if pack.paired else pack.edge_idx}
+        arrays = {f: _to_tensor(getattr(self, f), device, pin) for f in _ARRAY_FIELDS if f not in rows}
+        threads = torch.get_num_threads()
+        with ThreadPoolExecutor(threads) as pool:
+            for f, idx in rows.items():
+                arrays[f] = _rows(getattr(self, f), idx, device, pin, pool, threads)
+        sent = sum(arrays[f].nbytes for f in rows)
+        images = None if self.images is None else _to_tensor(self.images, device, pin)
+        UPLOAD["packed_calls"] += 1
+        UPLOAD["bytes_sent"] += sent
+        UPLOAD["bytes_skipped"] += padded_bytes - sent
         return dataclasses.replace(self, **arrays, images=images)
 
     def numpy(self) -> "SceneBatch":

@@ -33,13 +33,14 @@ from or4d_tpu_torch.models.sgpn import SGPN
 @torch.no_grad()
 def predict_relations(model: SGPN, batches: Iterable[SceneBatch], vocab: Vocab = DEFAULT_VOCAB) -> dict[str, list]:
     """{scan_id: [(subject, relation, object), ...]} over every batch (eval,
-    no autograd graph)."""
+    no autograd graph); each batch uploads only the crop rows its pack
+    reads."""
     dev = model.device
     scan_relations: dict[str, list] = {}
     for batch in batches:
         batch = batch.numpy()
         pack = SlotPack.build(batch, paired=is_pair_shared(batch))
-        out = model(batch.to(dev), pack.to(dev)).rel_logprobs
+        out = model(batch.to(dev, pack=pack), pack.to(dev)).rel_logprobs
         scan_relations.update(relations_of(batch, out, vocab, model.multi_rel_outputs))
     return scan_relations
 

@@ -135,6 +135,11 @@ class SGPN(nn.Module):
     def forward(self, batch: SceneBatch, pack: SlotPack | None = None, train: bool = False,
                 dropout_keep: dict | None = None, sa1_caches=None) -> SGPNOutputs:
         """``batch`` and ``pack`` hold tensors on the model's device.
+        ``batch`` may hold only the crop rows that ``pack`` reads, in its
+        order (``SceneBatch.to(device, pack=host_plan)``: (Co, Po, 6) and
+        (Cp or Ce, Pr, 7) crops beside (S, O) and (S, E) masks); the eval
+        forward then reads them as they are, the same rows as it would
+        gather from the padded crops.
 
         ``train=True``: batch statistics over the valid rows (pack validity,
         or the batch masks without a pack), running statistics updated, and
@@ -158,17 +163,26 @@ class SGPN(nn.Module):
                 raise ValueError("slot packing is dp-only: an mp > 1 mesh runs without a pack")
             slots = dataclasses.replace(batch, **{f: slot_block(getattr(batch, f), mesh) for f in
                                                   ("obj_points", "rel_points", "obj_mask", "edge_mask")})
-        S, O, Po, Co = slots.obj_points.shape
-        _, E, Pr, Cr = slots.rel_points.shape
+        S, O = slots.obj_mask.shape
+        E = slots.edge_mask.shape[1]
         obj_rows = slots.obj_mask.reshape(S * O).float()
         edge_rows = slots.edge_mask.reshape(S * E).float()
-        obj_flat = slots.obj_points.reshape(S * O, Po, Co).float()
-        rel_flat = slots.rel_points.reshape(S * E, Pr, Cr).float()
         paired = not train and pack is not None and pack.paired
+        rel_idx = None if pack is None else pack.pair_idx if paired else pack.edge_idx
+        if slots.obj_points.dim() == 3:  # the crop rows of ``pack``, in its order (SceneBatch.to(pack=...))
+            if (train or pack is None or slots.obj_points.shape[0] != pack.obj_idx.shape[0]
+                    or slots.rel_points.shape[0] != rel_idx.shape[0]):
+                raise ValueError("crops uploaded in pack order need that pack, in eval")
+            obj_flat = slots.obj_points.float()
+            rel_flat = slots.rel_points.float()
+        else:
+            obj_flat = slots.obj_points.flatten(0, 1).float()
+            rel_flat = slots.rel_points.flatten(0, 1).float()
+            if pack is not None:
+                obj_flat = obj_flat[pack.obj_idx]
+                rel_flat = rel_flat[rel_idx]
         if pack is not None:
-            obj_flat = obj_flat[pack.obj_idx]
             obj_rows = pack.obj_valid.float()
-            rel_flat = rel_flat[pack.pair_idx if paired else pack.edge_idx]
             edge_rows = pack.pair_valid.float() if paired else pack.edge_valid.float()
         if paired:
             # forward crops -> both mask channels (1 <-> 2 swapped for the reverse)
@@ -185,8 +199,8 @@ class SGPN(nn.Module):
     def _head(self, batch, pack, obj_feat, rel_feat, paired, train, dropout_keep) -> SGPNOutputs:
         """Encoder rows scattered back into the padded layout, then the GCN
         and the heads."""
-        S, O = batch.obj_points.shape[:2]
-        E = batch.rel_points.shape[1]
+        S, O = batch.obj_mask.shape
+        E = batch.edge_mask.shape[1]
         D, De = self.point_feature_size, self.edge_feature_size
         if pack is not None:
             ov = pack.obj_valid[:, None].to(obj_feat.dtype)

@@ -25,8 +25,9 @@ takes this rank's block of scenes, of those draws and of the dropout masks
 and row d of the dp-sharded pack, augments its block (the augmentation's
 rounding does not depend on the batch's shape), runs the model (BN moments and loss denominators over
 every rank), sums the gradients over the world and steps AdamW alike on
-every rank. Eval outputs are gathered in scene order and the padded scenes
-dropped. On an mp > 1 mesh no pack is used (the slot axes are sharded) and
+every rank. An eval step uploads only the crop rows of its rank's pack;
+its outputs are gathered in scene order and the padded scenes dropped.
+On an mp > 1 mesh no pack is used (the slot axes are sharded) and
 a rank's loss is divided by mp (each mp rank runs the GCN and the heads on
 the same scenes).
 """
@@ -80,10 +81,16 @@ class Trainer:
         return [p for n, p in self.model.named_parameters() if is_trainable(n)]
 
     def _pack_for(self, padded: SceneBatch, paired: bool = False) -> SlotPack | None:
-        """This rank's slot pack of a batch padded to a multiple of dp: row d
-        of the dp-sharded plan (the flat plan at dp = 1), on the device.
-        None on an mp > 1 mesh: its slot axes are sharded, and a compaction
-        over slots would mix them."""
+        """This rank's slot pack of a batch padded to a multiple of dp, on the
+        device (:meth:`_host_pack` moved there)."""
+        plan = self._host_pack(padded, paired)
+        return None if plan is None else plan.to(self.device)
+
+    def _host_pack(self, padded: SceneBatch, paired: bool = False) -> SlotPack | None:
+        """This rank's slot pack of a batch padded to a multiple of dp, on the
+        host: row d of the dp-sharded plan (the flat plan at dp = 1), its
+        indices local to this rank's block. None on an mp > 1 mesh: its slot
+        axes are sharded, and a compaction over slots would mix them."""
         mesh = self.mesh
         if mesh.mp > 1:
             if not self._warned_mp_pack:
@@ -97,8 +104,8 @@ class Trainer:
                 self._warned_mp_pack = True
             return None
         if mesh.dp == 1:
-            return SlotPack.build(padded, paired=paired).to(self.device)
-        return SlotPack.build(padded, shards=mesh.dp, paired=paired).row(mesh.dp_rank).to(self.device)
+            return SlotPack.build(padded, paired=paired)
+        return SlotPack.build(padded, shards=mesh.dp, paired=paired).row(mesh.dp_rank)
 
     def _gather_scenes(self, t: torch.Tensor, S: int) -> torch.Tensor:
         """Every dp rank's block of a per-scene output, in scene order, the
@@ -155,11 +162,13 @@ class Trainer:
     def eval_step(self, batch: SceneBatch):
         """(rel_logprobs (S, E, R), obj_logprobs (S, O, C)) of the global
         batch on the device; pair-shared batches encode each unordered
-        relation pair once."""
+        relation pair once. Only the crop rows the pack reads are uploaded
+        (``SceneBatch.to(device, pack=...)``)."""
         host = batch.numpy()
         padded = host.pad_scenes(self.mesh.dp)
-        pack = self._pack_for(padded, paired=is_pair_shared(padded))
-        out = self.model(dp_block(padded, self.mesh).to(self.device), pack)
+        plan = self._host_pack(padded, paired=is_pair_shared(padded))
+        pack = None if plan is None else plan.to(self.device)
+        out = self.model(dp_block(padded, self.mesh).to(self.device, pack=plan), pack)
         S = host.num_scenes
         return self._gather_scenes(out.rel_logprobs, S), self._gather_scenes(out.obj_logprobs, S)
 

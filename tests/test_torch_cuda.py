@@ -1008,3 +1008,117 @@ def test_cli_infer_on_the_card_equals_cpu(card, tmp_path):
     for name, mask in (("rel_logprobs", em), ("obj_logprobs", om)):
         got, want = getattr(out["cuda"], name).cpu()[mask], getattr(out["cpu"], name)[mask]
         assert float((got - want).abs().max()) <= 1e-3, name
+
+
+def _pair_shared_batches(card):
+    """Two different pair-shared batches at the paper's point counts, each
+    with its host plan (equal capacities), and an f32 SGPN on the card."""
+    from or4d_tpu_torch.config import DatasetConfig
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+    from or4d_tpu_torch.data.synthetic import make_scene_samples
+    from or4d_tpu_torch.models import SGPN
+
+    out = []
+    for seed in (11, 23):
+        batch = SceneBatch.stack(make_scene_samples(3, seed=seed, n_objects=6, ds=DatasetConfig(),
+                                                    points_per_obj=2000, pair_shared=True))
+        out.append((batch, SlotPack.build(batch, bucket=8, paired=True)))
+    return out, SGPN(device=card, seed=6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paired", [True, False])
+def test_packed_upload_on_the_card_gives_the_full_uploads_logprobs_bit_for_bit(card, paired, dtype):
+    """On the card as on the CPU: the pack's crop rows uploaded alone give
+    the log-probs of the full padded upload bit for bit, in f32 and bf16."""
+    from or4d_tpu_torch.data.scene_batch import SlotPack
+    from or4d_tpu_torch.models import SGPN
+
+    pairs, _ = _pair_shared_batches(card)
+    batch = pairs[0][0]
+    plan = SlotPack.build(batch, bucket=8, paired=paired)
+    model = SGPN(device=card, seed=6, compute_dtype=dtype)
+    with torch.no_grad():
+        full = model(batch.to(card), plan.to(card))
+        packed = model(batch.to(card, pack=plan), plan.to(card))
+    assert torch.equal(packed.rel_logprobs, full.rel_logprobs)
+    assert torch.equal(packed.obj_logprobs, full.obj_logprobs)
+
+
+def test_packed_upload_stages_every_array_in_pinned_memory(card, monkeypatch):
+    """Every host buffer the packed upload stages through is pinned: the two
+    crops' gathered rows, the seven padded arrays and the images."""
+    import dataclasses
+
+    from or4d_tpu_torch.data import scene_batch
+
+    buffers, make = [], scene_batch._host_buffer
+    monkeypatch.setattr(scene_batch, "_host_buffer", lambda *a: buffers.append(make(*a)) or buffers[-1])
+    ((batch, plan), _), _ = _pair_shared_batches(card)
+    batch = dataclasses.replace(batch, images=np.random.default_rng(0).standard_normal((3, 6, 16, 16, 3),
+                                                                                       dtype=np.float32))
+    up = batch.to(card, pack=plan)
+    torch.cuda.synchronize()
+    assert len(buffers) == 10 and all(b.is_pinned() for b in buffers)
+    flat = torch.from_numpy(batch.rel_points).flatten(0, 1)
+    assert torch.equal(up.rel_points.cpu(), flat[torch.from_numpy(plan.pair_idx).long()])
+    assert torch.equal(up.images.cpu(), torch.from_numpy(batch.images))
+
+
+def test_packed_uploads_back_to_back_keep_their_own_rows(card):
+    """Batches A B A B uploaded without a synchronisation between them, while
+    the stream is held busy so every copy is still pending when the next
+    gather writes: each upload's crops and log-probs equal those of the same
+    batch uploaded alone. A pinned buffer reused before its copy completed
+    would carry the next batch's rows."""
+    pairs, model = _pair_shared_batches(card)
+    alone = []
+    with torch.no_grad():
+        for batch, plan in pairs:
+            up = batch.to(card, pack=plan)
+            out = model(up, plan.to(card))
+            torch.cuda.synchronize()
+            alone.append((up.obj_points.cpu(), up.rel_points.cpu(), out.rel_logprobs.cpu(), out.obj_logprobs.cpu()))
+        order = [0, 1, 0, 1]
+        torch.cuda._sleep(500_000_000)
+        ups = [pairs[i][0].to(card, pack=pairs[i][1]) for i in order]
+        outs = [model(up, pairs[i][1].to(card)) for up, i in zip(ups, order)]
+        torch.cuda.synchronize()
+    for up, out, i in zip(ups, outs, order):
+        got = (up.obj_points.cpu(), up.rel_points.cpu(), out.rel_logprobs.cpu(), out.obj_logprobs.cpu())
+        for g, w in zip(got, alone[i]):
+            assert torch.equal(g, w), i
+
+
+def test_s64_paired_eval_upload_sends_the_packs_rows_only(card):
+    """An S = 64 pair-shared batch at the paper's slots (12 x 4000 and 132 x
+    8000) with 9 objects a scene: 2304 pair rows and 640 object rows, 578 MB
+    of the 1.97 GB of padded crops, and no more on the card."""
+    from or4d_tpu_torch.data import scene_batch
+    from or4d_tpu_torch.data.scene_batch import SceneBatch, SlotPack
+
+    S, O, E, n = 64, 12, 132, 9
+    edges = [(a, b) for a in range(n) for b in range(n) if a != b]
+    edge_index = np.zeros((S, E, 2), np.int32)
+    edge_index[:, : len(edges)] = edges
+    edge_mask = np.zeros((S, E), bool)
+    edge_mask[:, : len(edges)] = True
+    obj_mask = np.zeros((S, O), bool)
+    obj_mask[:, :n] = True
+    batch = SceneBatch(obj_points=np.zeros((S, O, 4000, 6), np.float32),
+                       rel_points=np.zeros((S, E, 8000, 7), np.float32), edge_index=edge_index,
+                       rel_onehot=np.zeros((S, E, 12), np.float32), gt_class=np.zeros((S, O), np.int32),
+                       gt_rels=np.zeros((S, E), np.int32), obj_mask=obj_mask, edge_mask=edge_mask,
+                       rel_hand_points=np.zeros((S, E, 2, 3), np.float32))
+    plan = SlotPack.build(batch, paired=True)
+    assert (len(plan.pair_idx), len(plan.obj_idx)) == (2304, 640)
+    torch.cuda.synchronize()
+    before, held = dict(scene_batch.UPLOAD), torch.cuda.memory_allocated()
+    up = batch.to(card, pack=plan)
+    torch.cuda.synchronize()
+    sent = scene_batch.UPLOAD["bytes_sent"] - before["bytes_sent"]
+    assert sent == 2304 * 8000 * 7 * 4 + 640 * 4000 * 6 * 4 == 577_536_000
+    assert scene_batch.UPLOAD["bytes_skipped"] - before["bytes_skipped"] == (
+        batch.obj_points.nbytes + batch.rel_points.nbytes - sent) == 1_388_544_000
+    assert up.rel_points.shape == (2304, 8000, 7) and up.obj_points.shape == (640, 4000, 6)
+    assert torch.cuda.memory_allocated() - held < 600e6
